@@ -3,37 +3,53 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. build the fused physics kernel (physics/csrc/chain_step.cu) with nvcc
-     and print the build time and the assembler's register / stack report;
-  2. hold the kernel against its plain PyTorch version on the card: go1 on
-     rough terrain at 1800 envs, default-pose targets, the cached contact
-     window, on a fresh reset and on a settled state (30 zero-action
-     steps); time both with CUDA events and count the plain version's
-     float operations for the bound;
-  3. drive the main path: registry.make_env("go1", rough variant of
-     bench.py, device="cuda"), a seeded ActorCritic sampling actions, 24-step
-     rollouts (one PPO horizon); the kernel's launch count must equal the
-     number of policy steps; obs / rewards finite; then the bench.py
-     throughput (random normal actions) in env-steps/s;
-  4. print the kernel table line, the card's name and power limit, and the
+  1. build the fused physics kernel (physics/csrc/chain_step.cu) with nvcc,
+     one library per robot layout (go1, aliengo), both compilers started
+     together; print the build time and the assembler's register / stack
+     report;
+  2. hold each kernel variant against its plain PyTorch version on the
+     card, on a fresh reset and on a settled state (30 zero-action steps),
+     time both with CUDA events and count the plain version's float
+     operations for the bound:
+       K1 — go1 on rough terrain at 1800 envs (run_decimation_cuda);
+       K4 — aliengo at its own 4096 envs with warm-start friction anchors
+            (run_decimation_anchored_cuda), anchors compared too;
+  3. drive the rollout path: registry.make_env("go1", rough variant of
+     bench.py, device="cuda"), a seeded ActorCritic sampling actions, one
+     24-step rollout (one PPO horizon); the kernel's launch count must
+     equal the number of policy steps; obs / rewards finite; then the
+     bench.py throughput (random normal actions) in env-steps/s;
+  4. drive the training path: registry.make_runner on the 1800-env rough
+     go1 env, runner.learn(3, init_at_random_ep_len=True) at the full
+     512-256-128 width (24 steps, 5 x 4 minibatches), K1 launches counted;
+     then the same for aliengo at 4096 envs, 2 iterations, K4 launches
+     counted. Metrics finite, lr in [1e-5, 1e-2], actor and critic
+     changed, a save / load round trip restores weights, moments and
+     iteration; prints policy-steps/s (24 x num_envs x iterations / wall,
+     synced) and the rollout / update split of an iteration;
+  5. print the kernel table line, the card's name and power limit, and the
      result line.
 
 Imports the port only (legged_gym_tpu_torch), never JAX.
 """
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 DEVICE = "cuda"
-NUM_ENVS = 1800
+GO1_ENVS = 1800
+ALIENGO_ENVS = 4096
 HORIZON = 24            # one PPO rollout (RunnerCfg.num_steps_per_env)
-ROLLOUTS = 3
 BENCH_STEPS = 50        # bench.py: N_STEPS per timed call
-BENCH_REPS = 2
+GO1_TRAIN_ITERS = 3
+ALIENGO_TRAIN_ITERS = 2
+ANCHOR_DIFF_MAX = 0     # anchor entries allowed to differ in live / sentinel
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
@@ -43,12 +59,207 @@ def fail(msg):
     sys.exit(1)
 
 
+def check_kernel(tag, env, smi, anchored):
+    """Phase 2 for one kernel variant: compare with the plain version on a
+    fresh reset and a settled state, time both, compute the bound. Returns
+    the measured part of the kernel's table entry."""
+    from legged_gym_tpu_torch.physics import chain_kernel, chain_step
+    from legged_gym_tpu_torch.scripts import kernel_numerics as kn
+
+    n = env.num_envs
+    cc = env.chain_engine.cc
+    cv = chain_step.const_tensors(cc, DEVICE)
+    table = torch.as_tensor(chain_kernel.const_table(cc), device=DEVICE)
+    state = env.initial_state()
+    zeros = torch.zeros((n, env.num_actions), device=DEVICE)
+
+    def plain(args, anchors):
+        return chain_step.run_decimation_chain(cc, *args, cv=cv,
+                                               anchors=anchors)
+
+    def kernel(args, anchors):
+        if anchored:
+            return chain_kernel.run_decimation_anchored_cuda(
+                cc, *args, anchors, consts=table)
+        return chain_kernel.run_decimation_cuda(cc, *args, consts=table)
+
+    fresh_errs = None
+    anchor_err = None
+    timings = {}
+    for label, steps in (("fresh reset", 0), ("settled", 30)):
+        for _ in range(steps):
+            state, _ = env.step(state, zeros)
+        args = kn.kernel_args(env, state)
+        anchors = state.contact_ws if anchored else None
+        if anchored and anchors is None:
+            fail(f"{tag}: the env carries no anchors")
+        ref = plain(args, anchors)
+        out = kernel(args, anchors)
+        torch.cuda.synchronize()
+        if len(ref) != len(out):
+            fail(f"{tag}: kernel returns {len(out)} outputs, plain "
+                 f"{len(ref)}")
+        for name, r, o in zip(kn.NAMES + ("anchors",), ref, out):
+            if tuple(r.shape) != tuple(o.shape):
+                fail(f"{tag} {name}: kernel shape {tuple(o.shape)}, plain "
+                     f"{tuple(r.shape)}")
+            if not torch.isfinite(o).all():
+                fail(f"{tag} {name}: kernel output not finite ({label})")
+        errs = {k: float(v.max())
+                for k, v in kn.per_env_errors(ref, out).items()}
+        tol = kn.tolerances(settled=steps > 0)
+        print(f"phase 2 {tag} [{label}]: max |kernel - plain| "
+              + ", ".join(f"{k} {v:.3e} (tol {tol[k]:g})"
+                          for k, v in errs.items()) + f" [{smi}]")
+        for name, v in errs.items():
+            if not v <= tol[name]:
+                fail(f"{tag} {name} differs by {v:.3e} > {tol[name]} "
+                     f"({label})")
+        if anchored:
+            a_in_live = int((anchors < kn.ANCHOR_LIVE).sum())
+            err, n_live, n_diff = kn.anchor_errors(ref[7], out[7])
+            print(f"phase 2 {tag} [{label}]: anchors in: {a_in_live} of "
+                  f"{anchors.numel()} entries live; out: {n_live} live in "
+                  f"both, {n_diff} differ in live / sentinel state "
+                  f"(allowed {ANCHOR_DIFF_MAX}); max |kernel - plain| "
+                  f"{err:.3e} m (tol {kn.ANCHOR_ATOL:g}) [{smi}]")
+            if n_diff > ANCHOR_DIFF_MAX:
+                fail(f"{tag}: {n_diff} anchor entries differ in live / "
+                     f"sentinel state ({label})")
+            if not err <= kn.ANCHOR_ATOL:
+                fail(f"{tag}: anchors differ by {err:.3e} m ({label})")
+            if steps > 0 and a_in_live < 0.9 * anchors.numel():
+                fail(f"{tag}: the settled state carries mostly sentinel "
+                     f"anchors: the anchored law is not exercised")
+            anchor_err = err if anchor_err is None else max(anchor_err, err)
+        if fresh_errs is None:
+            fresh_errs = errs
+        timings[label] = (
+            kn.cuda_ms(lambda: kernel(args, anchors), reps=50),
+            kn.cuda_ms(lambda: plain(args, anchors), reps=2, warmup=1))
+        print(f"phase 2 {tag} [{label}]: kernel {timings[label][0]:.4f} "
+              f"ms/launch, plain version {timings[label][1]:.3f} ms/call "
+              f"[{smi}]")
+    flops = kn.count_flops(lambda: plain(args, anchors))
+    moved = list(args) + [table] + list(out)
+    if anchored:
+        moved.append(anchors)
+    n_bytes = sum(t.numel() * t.element_size() for t in moved)
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / FP32_FLOPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    kernel_ms, plain_ms = timings["settled"]
+    print(f"phase 2 {tag}: bound {bound_ms:.4f} ms: {n_bytes} bytes -> "
+          f"{bytes_ms:.4f} ms, {flops} fp32 ops -> {ops_ms:.4f} ms "
+          f"({bound_by}); kernel at {100 * bound_ms / kernel_ms:.2f}% of "
+          f"the bound [{smi}]")
+    if not all(math.isfinite(v) for v in (kernel_ms, plain_ms, bound_ms)):
+        fail(f"{tag}: non-finite timing")
+    entry = {
+        "max_abs_err": max(fresh_errs[k] for k in kn.NAMES[:6]),
+        "body_f_max_abs_err": fresh_errs["body_f"],
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}
+    if anchored:
+        entry["anchors_max_abs_err"] = anchor_err
+    return entry
+
+
+def train_path(tag, env, task, iterations, wrapper, other, smi):
+    """Phase 4 for one task: a few PPO iterations through
+    registry.make_runner; returns the wrapper's launch count."""
+    from legged_gym_tpu_torch import registry
+
+    n = env.num_envs
+    _, tcfg = registry.get_cfgs(task)
+    if list(tcfg.policy.actor_hidden_dims) != [512, 256, 128] \
+            or tcfg.runner.num_steps_per_env != HORIZON \
+            or (tcfg.algorithm.num_learning_epochs,
+                tcfg.algorithm.num_mini_batches) != (5, 4):
+        fail(f"{tag}: the training config is not the full-width one")
+    runner, _ = registry.make_runner(env, train_cfg=tcfg, log_root=None)
+    runner.learn_fn.profile = True
+    model = runner.train_state.model
+    before = [p.detach().clone() for p in model.parameters()]
+    wrapper.launches = 0
+    other.launches = 0
+    runner.learn(iterations, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    steps = 1 + iterations * HORIZON          # the reset step + rollouts
+    if launches != steps:
+        fail(f"{tag}: kernel launched {launches} times in {steps} policy "
+             f"steps")
+    if other.launches:
+        fail(f"{tag}: the other kernel variant was launched "
+             f"{other.launches} times")
+    m = runner.last_metrics
+    flat = [v for v in m.values() if isinstance(v, float)]
+    flat += list(m["episode"].values())
+    if not all(math.isfinite(v) for v in flat):
+        fail(f"{tag}: non-finite metric in {m}")
+    if not 0.99e-5 <= m["lr"] <= 1e-2:
+        fail(f"{tag}: lr {m['lr']} outside [1e-5, 1e-2]")
+    if runner.current_iteration != iterations:
+        fail(f"{tag}: iteration counter {runner.current_iteration}")
+    names = [k for k, _ in model.named_parameters()]
+    moved = {k: float((p.detach() - b).abs().max())
+             for k, p, b in zip(names, model.parameters(), before)}
+    if not (any(v > 0 for k, v in moved.items() if k.startswith("actor"))
+            and any(v > 0 for k, v in moved.items()
+                    if k.startswith("critic"))):
+        fail(f"{tag}: weights did not change: {moved}")
+
+    # save / load round trip into a second runner
+    ts = runner.train_state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"model_{iterations}.ckpt")
+        runner.save(path)
+        other_runner, _ = registry.make_runner(env, train_cfg=tcfg,
+                                               log_root=None)
+        other_runner.load(path)
+    ts2 = other_runner.train_state
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(ts.params, ts2.params))
+    same &= all(torch.equal(a, b) for a, b in zip(
+        ts.opt_state.mu + ts.opt_state.nu,
+        ts2.opt_state.mu + ts2.opt_state.nu))
+    if not (same and ts2.opt_state.count == ts.opt_state.count
+            == iterations * 20
+            and other_runner.current_iteration == iterations
+            and float(ts2.lr) == float(ts.lr)):
+        fail(f"{tag}: save / load did not restore the train state")
+
+    # steady-state throughput: a second, timed call (learn() ends by
+    # fetching its last metrics, so the wall time is synced)
+    runner.learn_fn.times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.learn(iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rollout_s = sum(t["rollout_s"] for t in runner.learn_fn.times)
+    update_s = sum(t["update_s"] for t in runner.learn_fn.times)
+    print(f"phase 4 {tag}: {iterations} iterations, {launches} kernel "
+          f"launches in {steps} policy steps; reward/step "
+          f"{m['mean_step_reward']:.5f}, kl {m['kl']:.4f}, lr "
+          f"{m['lr']:.2e}, noise std {m['noise_std']:.3f}; save / load "
+          f"round trip ok [{smi}]")
+    print(f"phase 4 {tag}: train {HORIZON * n * iterations / wall:.0f} "
+          f"policy-steps/s ({n} envs, {iterations} timed iterations, "
+          f"{wall / iterations:.3f} s each: rollout "
+          f"{rollout_s / iterations:.3f} s, update "
+          f"{update_s / iterations:.3f} s) [{smi}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an "
              "NVIDIA card")
     from legged_gym_tpu_torch import registry
-    from legged_gym_tpu_torch.physics import chain_kernel, chain_step
+    from legged_gym_tpu_torch.physics import chain_kernel
     from legged_gym_tpu_torch.rl.networks import ActorCritic, sample_action
     from legged_gym_tpu_torch.scripts import kernel_numerics as kn
 
@@ -59,100 +270,60 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    k1 = chain_kernel.run_decimation_cuda
+    k4 = chain_kernel.run_decimation_anchored_cuda
 
-    # ---- phase 1: build ----
+    # ---- phase 1: build, one library per layout, compilers in parallel ----
+    go1_env, _ = registry.make_env(cfg=kn.rough_cfg(GO1_ENVS), device=DEVICE)
+    ali_env, _ = registry.make_env("aliengo", device=DEVICE)
+    if (go1_env.num_envs, ali_env.num_envs) != (GO1_ENVS, ALIENGO_ENVS):
+        fail(f"envs simulate {go1_env.num_envs} and {ali_env.num_envs} envs")
+    layouts = [chain_kernel.model_layout(e.chain_engine.cm)
+               for e in (go1_env, ali_env)]
+    if layouts[0] == layouts[1]:
+        fail("go1 and aliengo share one layout")
     t0 = time.perf_counter()
-    chain_kernel.load_library("cuda")
-    print(f"phase 1: kernel built in {time.perf_counter() - t0:.1f} s "
-          f"[{smi}]")
-    for line in chain_kernel.build_log.get("cuda", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    chain_kernel.build_libraries(layouts)
+    print(f"phase 1: {len(layouts)} kernel libraries {layouts} built in "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    for layout in layouts:
+        log = chain_kernel.build_log.get(("cuda", layout), "")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {layout[0]}: {line.strip()}")
 
-    # ---- phase 2: kernel vs plain version on the card ----
-    env, _ = registry.make_env(cfg=kn.rough_cfg(NUM_ENVS), device=DEVICE)
-    if env.num_envs != NUM_ENVS:
-        fail(f"env simulates {env.num_envs} envs, not {NUM_ENVS}")
-    cc = env.chain_engine.cc
-    cv = chain_step.const_tensors(cc, DEVICE)
-    table = torch.as_tensor(chain_kernel.const_table(cc), device=DEVICE)
-    state = env.initial_state()
-    zeros = torch.zeros((NUM_ENVS, env.num_actions), device=DEVICE)
-    fresh_errs = None
-    timings = {}
-    for label, steps in (("fresh reset", 0), ("settled", 30)):
-        for _ in range(steps):
-            state, _ = env.step(state, zeros)
-        args = kn.kernel_args(env, state)
-        ref = chain_step.run_decimation_chain(cc, *args, cv=cv)
-        out = chain_kernel.run_decimation_cuda(cc, *args, consts=table)
-        torch.cuda.synchronize()
-        for name, r, o in zip(kn.NAMES, ref, out):
-            if tuple(r.shape) != tuple(o.shape):
-                fail(f"{name}: kernel shape {tuple(o.shape)}, plain "
-                     f"{tuple(r.shape)}")
-            if not torch.isfinite(o).all():
-                fail(f"{name}: kernel output not finite ({label})")
-        errs = {k: float(v.max())
-                for k, v in kn.per_env_errors(ref, out).items()}
-        tol = kn.tolerances(settled=steps > 0)
-        print(f"phase 2 [{label}]: max |kernel - plain| "
-              + ", ".join(f"{k} {v:.3e} (tol {tol[k]:g})"
-                          for k, v in errs.items()) + f" [{smi}]")
-        for name, v in errs.items():
-            if not v <= tol[name]:
-                fail(f"{name} differs by {v:.3e} > {tol[name]} ({label})")
-        if fresh_errs is None:
-            fresh_errs = errs
-        timings[label] = (
-            kn.cuda_ms(lambda: chain_kernel.run_decimation_cuda(
-                cc, *args, consts=table), reps=50),
-            kn.cuda_ms(lambda: chain_step.run_decimation_chain(
-                cc, *args, cv=cv), reps=3, warmup=1))
-        print(f"phase 2 [{label}]: kernel {timings[label][0]:.4f} ms/launch,"
-              f" plain version {timings[label][1]:.3f} ms/call [{smi}]")
-    flops = kn.count_flops(lambda: chain_step.run_decimation_chain(
-        cc, *args, cv=cv))
-    in_bytes = sum(t.numel() * t.element_size() for t in args) \
-        + table.numel() * table.element_size()
-    out_bytes = sum(o.numel() * o.element_size() for o in out)
-    bytes_ms = 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * flops / FP32_FLOPS_PER_S
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    kernel_ms, plain_ms = timings["settled"]
-    print(f"phase 2: bound {bound_ms:.4f} ms: {in_bytes + out_bytes} bytes "
-          f"-> {bytes_ms:.4f} ms, {flops} fp32 ops -> {ops_ms:.4f} ms "
-          f"({bound_by}); kernel at {100 * bound_ms / kernel_ms:.2f}% of "
-          f"the bound [{smi}]")
+    # ---- phase 2: each kernel variant vs its plain version ----
+    entry_k1 = check_kernel("K1 go1 rough 1800", go1_env, smi, False)
+    entry_k4 = check_kernel("K4 aliengo 4096", ali_env, smi, True)
 
-    # ---- phase 3: the main path ----
-    env, _ = registry.make_env("go1", cfg=kn.rough_cfg(NUM_ENVS), seed=0,
+    # ---- phase 3: the rollout path ----
+    env, _ = registry.make_env("go1", cfg=kn.rough_cfg(GO1_ENVS), seed=0,
                                device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     policy = ActorCritic(env.obs_dim, env.num_actions,
                          generator=torch.Generator().manual_seed(0)).to(DEVICE)
-    chain_kernel.run_decimation_cuda.launches = 0
+    k1.launches = 0
+    k4.launches = 0
     steps = 0
     all_done_steps = 0
-    with torch.inference_mode():
+    with torch.no_grad():
         state, obs = env.reset()
         steps += 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(ROLLOUTS):
-            for _ in range(HORIZON):
-                action, logp, _, _ = sample_action(policy, obs, gen)
-                state, tr = env.step(state, action)
-                obs = tr.obs
-                steps += 1
-                all_done_steps += int(tr.done.all())
+        for _ in range(HORIZON):
+            action, logp, _, _ = sample_action(policy, obs, gen)
+            state, tr = env.step(state, action)
+            obs = tr.obs
+            steps += 1
+            all_done_steps += int(tr.done.all())
         torch.cuda.synchronize()
         rollout_s = time.perf_counter() - t0
-    launches = chain_kernel.run_decimation_cuda.launches
-    if launches != steps:
-        fail(f"kernel launched {launches} times in {steps} policy steps")
-    if tuple(obs.shape) != (NUM_ENVS, env.obs_dim):
+    rollout_launches = k1.launches
+    if rollout_launches != steps or k4.launches:
+        fail(f"kernel launched {rollout_launches} times in {steps} policy "
+             f"steps (K4: {k4.launches})")
+    if tuple(obs.shape) != (GO1_ENVS, env.obs_dim):
         fail(f"obs shape {tuple(obs.shape)}")
     if not (torch.isfinite(obs).all() and torch.isfinite(tr.reward).all()
             and torch.isfinite(logp).all()):
@@ -160,48 +331,54 @@ def main():
     if all_done_steps:
         fail(f"every env terminated in {all_done_steps} steps")
     z = state.physics.pos[2] - state.env_origin[2]
-    policy_sps = NUM_ENVS * ROLLOUTS * HORIZON / rollout_s
-    print(f"phase 3: {steps} policy steps, {launches} kernel launches; "
-          f"reward mean {float(tr.reward.mean()):.4f}, base height over "
-          f"origin mean {float(z.mean()):.3f} m; rollout with policy "
-          f"{policy_sps:.0f} env-steps/s [{smi}]")
+    policy_sps = GO1_ENVS * HORIZON / rollout_s
+    print(f"phase 3: {steps} policy steps, {rollout_launches} kernel "
+          f"launches; reward mean {float(tr.reward.mean()):.4f}, base "
+          f"height over origin mean {float(z.mean()):.3f} m; rollout with "
+          f"policy {policy_sps:.0f} env-steps/s [{smi}]")
 
-    with torch.inference_mode():
+    with torch.no_grad():
         def bench_call():
             nonlocal state
             for _ in range(BENCH_STEPS):
-                a = torch.randn((NUM_ENVS, env.num_actions), generator=gen,
+                a = torch.randn((GO1_ENVS, env.num_actions), generator=gen,
                                 device=DEVICE)
                 state, tr_ = env.step(state, a)
             return tr_.reward.mean()
 
         float(bench_call())
-        best = 0.0
-        for _ in range(BENCH_REPS):
-            t0 = time.perf_counter()
-            float(bench_call())
-            best = max(best, NUM_ENVS * BENCH_STEPS
-                       / (time.perf_counter() - t0))
-    print(f"phase 3: bench.py throughput {best:.0f} env-steps/s "
-          f"(go1 rough, {NUM_ENVS} envs, random actions) [{smi}]")
+        t0 = time.perf_counter()
+        float(bench_call())
+        sps = GO1_ENVS * BENCH_STEPS / (time.perf_counter() - t0)
+    print(f"phase 3: bench.py throughput {sps:.0f} env-steps/s "
+          f"(go1 rough, {GO1_ENVS} envs, random actions) [{smi}]")
 
-    # ---- phase 4: kernel table, card, result ----
-    if not all(math.isfinite(v) for v in (kernel_ms, plain_ms, bound_ms)):
-        fail("non-finite timing")
-    line = {"kernels": [{
-        "name": "run_decimation_cuda",
-        "route": "cuda",
-        "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",
-        "replaces": "legged_gym_tpu/physics/pallas_step.py:67",
-        "launches": launches,
-        "max_abs_err": max(fresh_errs[n] for n in kn.NAMES[:6]),
-        "body_f_max_abs_err": fresh_errs["body_f"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}
+    # ---- phase 4: the training path, go1 rough then aliengo ----
+    k1_train = train_path("go1 rough 1800", env, "go1", GO1_TRAIN_ITERS, k1,
+                          k4, smi)
+    k4_train = train_path("aliengo 4096", ali_env, "aliengo",
+                          ALIENGO_TRAIN_ITERS, k4, k1, smi)
+
+    # ---- phase 5: kernel table, card, result ----
+    line = {"kernels": [
+        dict({"name": "run_decimation_cuda",
+              "route": "cuda",
+              "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",
+              "replaces": "legged_gym_tpu/physics/pallas_step.py:67",
+              "config": "K1",
+              "launches": rollout_launches + k1_train,
+              "launches_rollout": rollout_launches,
+              "launches_train": k1_train}, **entry_k1),
+        dict({"name": "run_decimation_anchored_cuda",
+              "route": "cuda",
+              "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",
+              "replaces": "legged_gym_tpu/physics/pallas_step.py:67",
+              "config": "K4",
+              "launches": k4_train,
+              "launches_train": k4_train}, **entry_k4)]}
+    for k in line["kernels"]:
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was not launched on the main path")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@ Ported path: position drive (``control_type="P"``) through the fused
 chain physics (physics/chain_engine.py: the CUDA kernel on the card, its
 plain version on the CPU), no actuator network (the Go1 UniNet output is
 discarded by the reference, config.ControlCfg), heightfield or plane
-terrain. Everything else (SEA / UniNet drives, V / T control, trimesh,
-self-collision, warm-start friction, privileged observations) raises
-NotImplementedError. The env simulates exactly ``num_envs`` envs.
+terrain, with or without warm-start friction anchors. Everything else
+(SEA / UniNet drives, V / T control, trimesh, self-collision, privileged
+observations) raises NotImplementedError. The env simulates exactly ``num_envs`` envs.
 
 Layout: internal tensors are batch-LAST; the policy boundary (obs /
 actions) is batch-first. Random draws come from one ``torch.Generator``
@@ -34,7 +34,8 @@ from legged_gym_tpu_torch import assets
 from legged_gym_tpu_torch.model.robot import compile_model
 from legged_gym_tpu_torch.ops import quat as quat_ops
 from legged_gym_tpu_torch.physics.chain_engine import ChainEngine
-from legged_gym_tpu_torch.physics.contact import ContactConfig
+from legged_gym_tpu_torch.physics.contact import (ANCHOR_SENTINEL,
+                                                  ContactConfig)
 from legged_gym_tpu_torch.physics.engine import Engine, SimConfig
 from legged_gym_tpu_torch.physics.kinematics import (contact_point_kinematics,
                                                      forward_kinematics)
@@ -72,6 +73,9 @@ class EnvState:
     link_params: torch.Tensor        # (nl, 10, N) randomized inertias
     lin_vel_x_range: torch.Tensor    # (2,) command-curriculum state
     episode_sums: dict               # name -> (N,)
+    # static-friction anchor carry when cfg.sim.contact_warm_start: packed
+    # (3, n_points, N) (physics/chain_step.py: split_anchors), else None
+    contact_ws: Optional[torch.Tensor] = None
 
     @property
     def n(self):
@@ -129,8 +133,6 @@ class LeggedEnv:
             raise _not_ported("an applied actuator network (SEA / UniNet)")
         if not cfg.sim.use_chain_engine:
             raise _not_ported("the general stacked engine")
-        if cfg.sim.contact_warm_start:
-            raise _not_ported("warm-start friction anchors (kernel K4)")
         if cfg.asset.linear_damping or cfg.asset.angular_damping:
             raise _not_ported("per-link body damping")
         if cfg.env.num_privileged_obs is not None:
@@ -195,11 +197,14 @@ class LeggedEnv:
         self._init_origins(seed)
 
         # --- engine constants + the fused chain physics ---
+        self._warm_start = bool(cfg.sim.contact_warm_start)
         simcfg = SimConfig(
             dt=cfg.sim.dt, substeps=cfg.sim.substeps,
             gravity=((0.0, 0.0, 0.0) if cfg.asset.disable_gravity
                      else tuple(cfg.sim.gravity)),
             contact=ContactConfig(
+                warm_start=self._warm_start,
+                anchor_release_depth=cfg.sim.contact_anchor_release_depth,
                 terrain_friction=cfg.terrain.static_friction))
         self.engine = Engine(self.model, simcfg, kp=self.p_gains,
                              kd=self.d_gains,
@@ -549,7 +554,8 @@ class LeggedEnv:
             link_params=self._link_params(mass_scales, n),
             lin_vel_x_range=lin_vel_x_range,
             episode_sums={name: torch.zeros(n, dtype=self.dtype, device=dev)
-                          for name in self.reward_scales})
+                          for name in self.reward_scales},
+            contact_ws=self.chain_engine.init_anchors(n, dev, self.dtype))
 
     def reset(self):
         """(state, obs): global reset + one zero-action step."""
@@ -591,9 +597,14 @@ class LeggedEnv:
         # ---- position drive + decimation x sim (legged_robot.py:89-99) ----
         targets = torch.clamp(a * cfg.control.action_scale + self._dflt,
                               self._soft_lo, self._soft_hi)
-        physics, torques, contact_f = self.chain_engine.step_decimation_pos(
+        out = self.chain_engine.step_decimation_pos(
             state.physics, state.link_params, state.friction, targets,
-            contact_patch=contact_patch)
+            contact_patch=contact_patch,
+            anchors=state.contact_ws if self._warm_start else None)
+        if self._warm_start:
+            physics, torques, contact_f, contact_ws = out
+        else:
+            (physics, torques, contact_f), contact_ws = out, None
 
         # ---- post-physics bookkeeping ----
         episode_length = state.episode_length + 1
@@ -770,6 +781,11 @@ class LeggedEnv:
         clip_o = cfg.normalization.clip_observations
         obs = torch.clamp(obs, -clip_o, clip_o)
 
+        if self._warm_start:
+            # fresh spawns start with no remembered stick anchors: back to
+            # the far sentinel, so the stale rule re-snaps on first touch
+            contact_ws = torch.where(done, ANCHOR_SENTINEL, contact_ws)
+
         new_state = EnvState(
             physics=physics, episode_length=episode_length,
             common_step=common_step, commands=commands, actions=a,
@@ -778,7 +794,8 @@ class LeggedEnv:
             feet_air_time=feet_air_time, terrain_level=terrain_level,
             env_origin=env_origin, friction=friction,
             mass_scales=mass_scales, link_params=link_params,
-            lin_vel_x_range=lin_vel_x_range, episode_sums=episode_sums)
+            lin_vel_x_range=lin_vel_x_range, episode_sums=episode_sums,
+            contact_ws=contact_ws)
         tr = Transition(
             obs=obs.T, reward=reward, done=done, time_out=time_out,
             episode_sums=ep_out, episode_count=torch.sum(donef),

@@ -2,8 +2,9 @@
 substeps) as one call.
 
 On a CUDA device the step runs as one launch of the hand-written kernel
-(chain_kernel.run_decimation_cuda); on the CPU it runs the plain PyTorch
-version (chain_step.run_decimation_chain). Handles the joint-order <->
+(chain_kernel.run_decimation_cuda, or run_decimation_anchored_cuda when
+the contact law carries warm-start friction anchors); on the CPU it runs
+the plain PyTorch version (chain_step.run_decimation_chain). Handles the joint-order <->
 chain-layout conversions (index gathers) and the per-env contact window.
 """
 from __future__ import annotations
@@ -69,8 +70,12 @@ class ChainEngine:
             wall_thresh=0.0,
             patch_S=patch_S,
             plane_per_step=plane_per_step,
-            warm_start=sim.contact.warm_start)
-        chain_step.check_k1(self.cc)
+            warm_start=sim.contact.warm_start,
+            anchor_beta=sim.contact.anchor_beta,
+            anchor_vmax=sim.contact.anchor_vmax,
+            anchor_stale2=sim.contact.anchor_stale2,
+            anchor_release_depth=sim.contact.anchor_release_depth)
+        chain_step.check_variant(self.cc)
 
         # joint order <-> level layout as index gathers
         self._lvl_index = np.where(cm.active, cm.J, 0).reshape(-1)  # (L*K,)
@@ -96,7 +101,7 @@ class ChainEngine:
                 self.cc, border_size=grid.border_size,
                 horizontal_scale=grid.horizontal_scale,
                 wall_thresh=grid.wall_thresh)
-        chain_step.check_k1(self.cc)
+        chain_step.check_variant(self.cc)
         self.grid = grid
         self._dev_cache = {}
 
@@ -160,6 +165,17 @@ class ChainEngine:
 
     # ------------------------------------------------------- public step
 
+    def init_anchors(self, n, device, dtype=torch.float32):
+        """Far-sentinel static-friction anchors, packed (3, n_points, N)
+        in the kernel's point order (chain_step.split_anchors gives the
+        JAX package's per-group (3, S, K, N) views). The 1e6 sentinel is
+        farther than sqrt(anchor_stale2) from any reachable contact point,
+        so the stale rule re-snaps on first touch wherever the robot
+        spawns. None when the contact law runs without warm start."""
+        if not self.cc.warm_start:
+            return None
+        return chain_step.init_anchors(self.cm, n, device, dtype)
+
     def level_args(self, state: PhysicsState, link_params, friction,
                    targets, contact_patch=None):
         """The arguments of run_decimation_cuda / run_decimation_chain
@@ -176,18 +192,29 @@ class ChainEngine:
         return [t.contiguous() for t in args]
 
     def step_decimation_pos(self, state: PhysicsState, link_params,
-                            friction, targets, contact_patch=None):
+                            friction, targets, contact_patch=None,
+                            anchors=None):
         """Full policy-step physics, position drive. Returns
         (state', torques (nq, N), body_forces (3, nb, N)); body_forces is
-        the net-contact-force sensor of the last substep. CUDA tensors
-        launch the kernel (or raise); CPU tensors run the plain version."""
+        the net-contact-force sensor of the last substep. With
+        ``cc.warm_start`` and ``anchors`` (init_anchors layout) a 4th
+        element: the updated anchors. CUDA tensors launch the kernel (or
+        raise); CPU tensors run the plain version."""
         c = self._consts(state.pos.device)
         args = self.level_args(state, link_params, friction, targets,
                                contact_patch)
-        pos, quat, vel, q_l, qd_l, tau_l, body_f = \
-            chain_kernel.run_decimation_cuda(self.cc, *args, cv=c["cv"],
-                                             consts=c["table"])
+        track_anchors = self.cc.warm_start and anchors is not None
+        if track_anchors:
+            pos, quat, vel, q_l, qd_l, tau_l, body_f, anchors = \
+                chain_kernel.run_decimation_anchored_cuda(
+                    self.cc, *args, anchors, cv=c["cv"], consts=c["table"])
+        else:
+            pos, quat, vel, q_l, qd_l, tau_l, body_f = \
+                chain_kernel.run_decimation_cuda(self.cc, *args, cv=c["cv"],
+                                                 consts=c["table"])
         new_state = PhysicsState(pos=pos, quat=quat, vel=vel,
                                  q=self.from_level(q_l),
                                  qd=self.from_level(qd_l))
+        if track_anchors:
+            return new_state, self.from_level(tau_l), body_f, anchors
         return new_state, self.from_level(tau_l), body_f

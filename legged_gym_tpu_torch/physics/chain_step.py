@@ -11,11 +11,19 @@ The CPU path of ``ChainEngine`` runs this module; on the card it is the
 reference the kernel is held against (tests/test_torch_kernel.py,
 chip_smoke.py). Semantics: PD position drive with implicit damping,
 joint-limit springs, velocity caps, implicit impulse contact against a
-heightfield patch with the contact plane sampled once per policy step.
+heightfield patch with the contact plane sampled once per policy step;
+with ``warm_start`` and anchors given, the tangential contact force is
+the anchored static-friction law (contact.anchored_tangential) and the
+anchors ride along.
 
-Only the main-path configuration (kernel variant K1) is ported: the
-per-sim-dt plane refresh and trimesh wall rule (K2), torque drive (K3)
-and warm-start friction anchors (K4) raise NotImplementedError.
+Two kernel variants are ported: K1 (the above without anchors) and K4
+(K1 with warm-start friction anchors). The per-sim-dt plane refresh and
+trimesh wall rule (K2) and torque drive (K3) raise NotImplementedError.
+
+Anchors travel as ONE packed tensor (3, n_points, N) in the kernel's point
+order: the base group's slots, then each level group slot-major,
+chain-minor. Group gi's (3, S, K, N) array — the JAX package's layout —
+is a reshaped view of a slice (:func:`split_anchors`).
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import torch
 from legged_gym_tpu_torch.ops import lin
 from legged_gym_tpu_torch.ops import quat as quat_ops
 from legged_gym_tpu_torch.ops.quat import cross
+from legged_gym_tpu_torch.physics.contact import (ANCHOR_SENTINEL,
+                                                  anchored_tangential)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,14 +70,21 @@ class ChainConsts:
     # sample the contact plane once per POLICY step (True: K1, the main
     # path) or once per sim dt (False: K2, not ported)
     plane_per_step: bool = True
-    # anchored static friction (K4, not ported)
+    # anchored static friction (K4): with anchors given, the tangential
+    # force is contact.anchored_tangential; the field names match
+    # ContactConfig so the shared law can read either object
     warm_start: bool = False
+    anchor_beta: float = 0.5
+    anchor_vmax: float = 1.0
+    anchor_stale2: float = 0.01
+    anchor_release_depth: float = 0.005
     # torque drive (K3, not ported)
     torque_mode: bool = False
 
 
-def check_k1(cc: ChainConsts):
-    """Raise on the kernel variants this port does not have yet."""
+def check_variant(cc: ChainConsts):
+    """Accept the ported kernel variants (K1, and K4 = K1 + warm_start);
+    raise on the ones this port does not have yet (K2, K3)."""
     if not cc.plane_per_step:
         raise NotImplementedError(
             "per-sim-dt contact planes (kernel variant K2) are not ported")
@@ -77,9 +94,33 @@ def check_k1(cc: ChainConsts):
     if cc.torque_mode:
         raise NotImplementedError(
             "torque drive (kernel variant K3) is not ported")
-    if cc.warm_start:
-        raise NotImplementedError(
-            "warm-start friction anchors (kernel variant K4) are not ported")
+
+
+def n_points(cm) -> int:
+    """Contact points of the chain model, all groups."""
+    return sum(g.offs.shape[0] * g.offs.shape[1] for g in cm.groups)
+
+
+def init_anchors(cm, n, device, dtype=torch.float32):
+    """Packed far-sentinel anchors (3, n_points, N)."""
+    return torch.full((3, n_points(cm), n), ANCHOR_SENTINEL, dtype=dtype,
+                      device=device)
+
+
+def split_anchors(cm, packed):
+    """Packed (3, n_points, N) -> per-group views (3, S, K, N), no copy."""
+    out, base = [], 0
+    for g in cm.groups:
+        S, K = g.offs.shape[:2]
+        out.append(packed[:, base:base + S * K].reshape(
+            3, S, K, packed.shape[-1]))
+        base += S * K
+    return out
+
+
+def pack_anchors(groups):
+    """Per-group (3, S, K, N) arrays -> packed (3, n_points, N)."""
+    return torch.cat([a.reshape(3, -1, a.shape[-1]) for a in groups], dim=1)
 
 
 def const_values(cc: ChainConsts, dtype=np.float32) -> dict:
@@ -219,7 +260,7 @@ def sample_patch_plane(cc: ChainConsts, cv, ph, pr0, pc0, x, y):
     cells. x, y: (..., N). Indexes the four corners directly; the JAX
     package contracts one-hot rows instead, whose only two nonzero weights
     give the same values."""
-    check_k1(cc)
+    check_variant(cc)
     S = cc.patch_S
     hs = cc.horizontal_scale
     dt = ph.dtype
@@ -265,12 +306,15 @@ def plane_consts(cc: ChainConsts, cv, gi, h, dhdx, dhdy, x, y):
 
 
 def contact_force_from_plane(cc: ChainConsts, cv, gi, plane, pos, vel,
-                             mu_env):
+                             mu_env, anchor=None):
     """Implicit impulse contact force (3,S,K,N) against a cached local
     plane: a Baumgarte-capped stopping impulse, a one-way static support
     spring (no force while separating faster than 5 cm/s, depth saturated
     at 15 mm) and regularized Coulomb friction capped at the tangential
-    stopping impulse."""
+    stopping impulse. With ``cc.warm_start`` and an anchor array
+    (3,S,K,N), the tangential term is the anchored static-friction law and
+    the return is (f, new_anchor); inactive (padding) points are pushed
+    1e9 m clear of the surface so their anchors stay fresh."""
     dt_in = cc.dt_inner
     c0, dhdx, dhdy, nx, ny, nz, gain = plane
     x, y, z = pos[0], pos[1], pos[2]
@@ -288,6 +332,15 @@ def contact_force_from_plane(cc: ChainConsts, cv, gi, plane, pos, vel,
     vty = vy - v_n * ny
     vtz = vz - v_n * nz
     mu = 0.5 * (mu_env + cc.mu_terrain)
+    if cc.warm_start and anchor is not None:
+        f_t, new_anchor = anchored_tangential(
+            cc, pos, fn_mag, mu, torch.stack([vtx, vty, vtz]),
+            torch.stack([nx, ny, nz]), met, dt_in, anchor,
+            depth=depth - (1.0 - cv[f"gact{gi}"]) * 1e9)
+        f = torch.stack([fn_mag * nx + f_t[0],
+                         fn_mag * ny + f_t[1],
+                         fn_mag * nz + f_t[2]])
+        return f, new_anchor
     vt = torch.sqrt(vtx * vtx + vty * vty + vtz * vtz)
     ft_over_vt = torch.minimum(mu * fn_mag / (vt + cc.slip_velocity),
                                met / dt_in)
@@ -498,17 +551,24 @@ def compute_plane(cc: ChainConsts, cv, fk, ph, pr0, pc0):
 
 
 def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
-               state5, plane):
+               state5, plane, anchors=None):
     """One sim dt = ``substeps`` inner substeps against the cached planes.
 
+    anchors: per-group list of (3,S,K,N) static-friction anchors when
+    ``cc.warm_start`` (updated every substep and returned), else None.
+
     Returns (state5', tau (L,K,N) last substep,
-             body_f (3, n_bodies, N) net contact forces, last substep)."""
-    check_k1(cc)
+             body_f (3, n_bodies, N) net contact forces, last substep
+             [, anchors' when cc.warm_start and anchors given])."""
+    check_variant(cc)
     cm = cc.cm
     pos, quat, vel, q, qd = state5
     n = pos.shape[-1]
     dtype, dev = pos.dtype, pos.device
     has_damping = bool(np.any(cm.damping != 0.0))
+    track_anchors = cc.warm_start and anchors is not None
+    if track_anchors:
+        anchors = list(anchors)
     tau = body_f = None
     for _ in range(cc.substeps):
         fk = fk_chain(cc, cv, pos, quat, vel, q, qd)
@@ -522,8 +582,13 @@ def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
         body_cols = [None] * cm.n_bodies
         for gi, g in enumerate(cm.groups):
             ppos, pvel = contact_points_group(cc, cv, fk, gi)
-            f = contact_force_from_plane(cc, cv, gi, plane[gi], ppos, pvel,
-                                         mu_env)
+            if track_anchors:
+                f, anchors[gi] = contact_force_from_plane(
+                    cc, cv, gi, plane[gi], ppos, pvel, mu_env,
+                    anchor=anchors[gi])
+            else:
+                f = contact_force_from_plane(cc, cv, gi, plane[gi], ppos,
+                                             pvel, mu_env)
             for (s0, s1, k, b) in body_runs(g):
                 col = f[:, s0:s1].sum(dim=1) if s1 - s0 > 1 else f[:, s0]
                 col = col[:, k]
@@ -552,26 +617,39 @@ def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
                             f_base, n_base, f_lvl, n_lvl, imp)
         pos, quat, vel, q, qd = integrate_chain(
             cc, cv, pos, quat, vel, q, qd, a0, qdd)
+    if track_anchors:
+        return (pos, quat, vel, q, qd), tau, body_f, anchors
     return (pos, quat, vel, q, qd), tau, body_f
 
 
 def run_decimation_chain(cc: ChainConsts, lp_base, lp_lvl, mu_env,
                          targets, ph, pr0, pc0, pos, quat, vel, q, qd,
-                         cv=None):
+                         cv=None, anchors=None):
     """The full policy-step physics: contact planes sampled once from the
     entry state, then decimation x substeps of the step body, position
     drive. Same contract as the CUDA kernel (chain_kernel.run_decimation_cuda).
 
+    anchors: packed (3, n_points, N) static-friction anchors (K4, needs
+    ``cc.warm_start``), or None (K1).
+
     Returns (pos, quat, vel, q, qd, tau_last (L,K,N),
-             body_f_last (3, n_bodies, N))."""
-    check_k1(cc)
+             body_f_last (3, n_bodies, N)[, anchors' (3, n_points, N)])."""
+    check_variant(cc)
     if cv is None:
         cv = const_tensors(cc, pos.device, pos.dtype)
     state5 = (pos, quat, vel, q, qd)
     fk0 = fk_chain(cc, cv, pos, quat, vel, q, qd)
     plane = compute_plane(cc, cv, fk0, ph, pr0, pc0)
     tau_last = body_f_last = None
+    track_anchors = cc.warm_start and anchors is not None
+    groups = split_anchors(cc.cm, anchors) if track_anchors else None
     for _ in range(cc.decimation):
-        state5, tau_last, body_f_last = one_sim_dt(
-            cc, cv, lp_base, lp_lvl, mu_env, targets, state5, plane)
+        out = one_sim_dt(cc, cv, lp_base, lp_lvl, mu_env, targets, state5,
+                         plane, anchors=groups)
+        if track_anchors:
+            state5, tau_last, body_f_last, groups = out
+        else:
+            state5, tau_last, body_f_last = out
+    if track_anchors:
+        return state5 + (tau_last, body_f_last, pack_anchors(groups))
     return state5 + (tau_last, body_f_last)

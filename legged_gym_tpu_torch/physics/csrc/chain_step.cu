@@ -1,6 +1,10 @@
-// Fused chain physics: one policy step (decimation x substeps) of the Go1
-// chain model for N envs, kernel variant K1 (position drive, contact plane
-// sampled once per policy step, no friction anchors, no trimesh wall rule).
+// Fused chain physics: one policy step (decimation x substeps) of a
+// quadruped chain model (Go1 by default, other point-group sizes by -D) for
+// N envs. Kernel variant K1: position drive, contact plane sampled once per
+// policy step, no trimesh wall rule. Kernel variant K4 (warm = 1): K1 with
+// per-point static-friction anchors carried in and out, the tangential
+// contact force being the implicit anchored law
+// (legged_gym_tpu/physics/contact.py::anchored_tangential).
 //
 // Replaces the TPU kernel legged_gym_tpu/physics/pallas_step.py
 // (run_decimation_pallas, body `kernel`), whose body is
@@ -18,6 +22,12 @@
 // blocks of 32 threads so the ~57 warps at 1800 envs spread over the SMs.
 // Four cooperating threads per env (one per leg, shuffles for the base
 // sums) is the next step for speed.
+// K4 adds 3 floats in and 3 out per contact point and env (504 floats per
+// env for aliengo's 84 points, +2 KB on 3.3 KB). The anchors never enter
+// thread-local memory: a substep reads each point's anchor from global
+// memory (the input at the first substep, the output buffer afterwards) and
+// writes the new one to the output buffer; the env axis is last, so a
+// warp's reads and writes coalesce and the rereads hit the cache.
 //
 // The same file compiles as plain C++ (g++ -x c++) into a
 // host loop over envs with the identical per-env arithmetic; the CPU tests
@@ -33,18 +43,30 @@
 #endif
 
 // ---------------------------------------------------------------- layout
-// The model shape this kernel is built for (Go1): L levels x K chains,
-// a base point group and one group per level. chain_kernel.py reads this
-// through chain_step_layout() and refuses any other model.
+// The model shape this kernel is built for: L levels x K chains, a base
+// point group and one group per level. The group sizes and the number of
+// report bodies are -D defines (defaults: Go1); chain_kernel.py builds one
+// library per layout, reads it back through chain_step_layout() and
+// refuses a model that does not match.
 #define L_LVL 3
 #define K_CH 4
 #define NG 4
+#ifndef NB
 #define NB 17
+#endif
+#ifndef S_BASE
 #define S_BASE 8
+#endif
+#ifndef S_L0
 #define S_L0 4
+#endif
+#ifndef S_L1
 #define S_L1 8
+#endif
+#ifndef S_L2
 #define S_L2 9
-#define NPTS (S_BASE + K_CH * (S_L0 + S_L1 + S_L2))   // 92
+#endif
+#define NPTS (S_BASE + K_CH * (S_L0 + S_L1 + S_L2))   // Go1: 92
 
 // constant table: scalars, then one record per joint (l, k), then one per
 // contact point (base group slots, then level groups slot-major, chain-minor)
@@ -74,6 +96,10 @@
 #define C_HAS_DAMP 15
 #define C_HALF_DT 16
 #define C_S_CLAMP 17
+#define C_ANC_BETA 18
+#define C_ANC_VMAX 19
+#define C_ANC_STALE2 20
+#define C_ANC_REL 21
 
 // joint record fields
 #define J_RJA 0
@@ -306,6 +332,8 @@ struct Args {
   const float* q;         // (L, K, N)
   const float* qd;        // (L, K, N)
   const float* cst;       // (N_CONST)
+  const float* anc;       // (3, NPTS, N) anchors in (K4), else null
+  float* anc_o;           // (3, NPTS, N) anchors out (K4), else null
   float* pos_o;
   float* quat_o;
   float* vel_o;
@@ -360,9 +388,12 @@ HD void make_plane(const Args& A, int e, const float* P, float x, float y,
         * P[P_ACT];
 }
 
-// implicit impulse contact force at one point against its cached plane
+// implicit impulse contact force at one point against its cached plane.
+// WARM: the tangential term is the anchored static-friction law; the
+// point's anchor is read from `anc` and the new one written to `anc_new`.
+template <bool WARM>
 HD V3 contact_force(const float* C, const float* P, const float* pl, V3 p,
-                    V3 v, float mu_env) {
+                    V3 v, float mu_env, V3 anc, V3* anc_new) {
   float dt = C[C_DT];
   float nx = pl[3], ny = pl[4], nz = pl[5];
   float h = pl[0] + pl[1] * p.x + pl[2] * p.y;
@@ -375,9 +406,63 @@ HD V3 contact_force(const float* C, const float* P, const float* pl, V3 p,
   float fn = depth > 0.f ? fn_raw : 0.f;
   float vtx = v.x - v_n * nx, vty = v.y - v_n * ny, vtz = v.z - v_n * nz;
   float mu = 0.5f * (mu_env + C[C_MU_T]);
+  if (WARM) {
+    // inactive (padding) points sit 1e9 m clear: their anchors stay fresh
+    float depth_a = depth - (1.f - P[P_ACT]) * 1e9f;
+    float dxa = p.x - anc.x, dya = p.y - anc.y, dza = p.z - anc.z;
+    bool is_near = depth_a > -C[C_ANC_REL];
+    bool stale = (dxa * dxa + dya * dya + dza * dza) > C[C_ANC_STALE2];
+    bool fresh = !is_near || stale;
+    // nothing but the stale test may see the un-zeroed offset (a sentinel
+    // anchor is 1e6 m away)
+    if (fresh) { dxa = 0.f; dya = 0.f; dza = 0.f; }
+    float dn = dxa * nx + dya * ny + dza * nz;
+    dxa = dxa - dn * nx; dya = dya - dn * ny; dza = dza - dn * nz;
+    float d_mag = sqrtf(dxa * dxa + dya * dya + dza * dza) + 1e-12f;
+    float v_pull = fminf(C[C_ANC_BETA] * d_mag / dt, C[C_ANC_VMAX]);
+    float g = P[P_MET] / dt;
+    float ftx = g * (-v_pull * dxa / d_mag - vtx);
+    float fty = g * (-v_pull * dya / d_mag - vty);
+    float ftz = g * (-v_pull * dza / d_mag - vtz);
+    float ft_mag = sqrtf(ftx * ftx + fty * fty + ftz * ftz) + 1e-9f;
+    float scale = fminf(1.f, mu * fn / ft_mag);
+    // sliding drags the anchor (return mapping); an unloaded but near
+    // point keeps it; a fresh one snaps to the point
+    if (fresh) {
+      *anc_new = p;
+    } else if (fn > 1e-3f) {
+      *anc_new = v3(p.x - dxa * scale, p.y - dya * scale, p.z - dza * scale);
+    } else {
+      *anc_new = anc;
+    }
+    return v3(fn * nx + ftx * scale, fn * ny + fty * scale,
+              fn * nz + ftz * scale);
+  }
   float vt = sqrtf(vtx * vtx + vty * vty + vtz * vtz);
   float ft = fminf(mu * fn / (vt + C[C_SLIP]), P[P_MET] / dt);
   return v3(fn * nx - ft * vtx, fn * ny - ft * vty, fn * nz - ft * vtz);
+}
+
+// one point's contact force; with WARM its anchor travels through global
+// memory: read from `src` (3, NPTS, N), the new one written to A.anc_o
+template <bool WARM>
+HD V3 point_force(const Args& A, const float* src, int e, int pidx,
+                  const float* P, const float* pl, V3 p, V3 v,
+                  float mu_env) {
+  V3 anc = v3(0.f, 0.f, 0.f), anc_new = anc;
+  if (WARM) {
+    const size_t n = (size_t)A.n;
+    anc = v3(src[(size_t)pidx * n + e], src[(size_t)(NPTS + pidx) * n + e],
+             src[(size_t)(2 * NPTS + pidx) * n + e]);
+  }
+  V3 f = contact_force<WARM>(A.cst, P, pl, p, v, mu_env, anc, &anc_new);
+  if (WARM) {
+    const size_t n = (size_t)A.n;
+    A.anc_o[(size_t)pidx * n + e] = anc_new.x;
+    A.anc_o[(size_t)(NPTS + pidx) * n + e] = anc_new.y;
+    A.anc_o[(size_t)(2 * NPTS + pidx) * n + e] = anc_new.z;
+  }
+  return f;
 }
 
 // joint rotation R(q) = RjA cos q + RjB sin q + RjC
@@ -425,6 +510,7 @@ struct Joint3 {
 };
 
 // ------------------------------------------------------------- per env
+template <bool WARM>
 HD void chain_env(const Args& A, int e) {
   const float* C = A.cst;
   const int n = A.n;
@@ -484,6 +570,9 @@ HD void chain_env(const Args& A, int e) {
   const int n_sub = A.decimation * A.substeps;
   for (int it = 0; it < n_sub; ++it) {
     for (int b = 0; b < NB; ++b) bf[b][0] = bf[b][1] = bf[b][2] = 0.f;
+    // anchors: the caller's at the first substep, then the ones the
+    // previous substep wrote
+    const float* anc_src = it == 0 ? A.anc : A.anc_o;
     M3 R0 = quat_to_matrix(qt);
     V3 p0 = vload(pos);
     V3 w0 = v3(vel[0], vel[1], vel[2]);
@@ -496,7 +585,8 @@ HD void chain_env(const Args& A, int e) {
       V3 off = vload(P + P_OFF);
       V3 pp = vadd(p0, mv(R0, off));
       V3 pv = mv(R0, vadd(v0, vcross(w0, off)));
-      V3 f = contact_force(C, P, plane[s], pp, pv, mu_env);
+      V3 f = point_force<WARM>(A, anc_src, e, s, P, plane[s], pp, pv,
+                               mu_env);
       f_base = vadd(f_base, f);
       n_base = vadd(n_base, vcross(vsub(pp, p0), f));
       int b = (int)P[P_BODY];
@@ -539,7 +629,8 @@ HD void chain_env(const Args& A, int e) {
           V3 off = vload(P + P_OFF);
           V3 cp = vadd(pw[l], mv(Rw[l], off));
           V3 cv = mv(Rw[l], vadd(vl[l], vcross(wl[l], off)));
-          V3 f = contact_force(C, P, plane[pidx], cp, cv, mu_env);
+          V3 f = point_force<WARM>(A, anc_src, e, pidx, P, plane[pidx], cp,
+                                   cv, mu_env);
           fl = vadd(fl, f);
           nl = vadd(nl, vcross(vsub(cp, pw[l]), f));
           if (P[P_ACT] != 0.f) {
@@ -697,10 +788,11 @@ HD void chain_env(const Args& A, int e) {
 
 // ------------------------------------------------------------ entry points
 #if defined(__CUDACC__)
+template <bool WARM>
 __global__ void __launch_bounds__(32)
 chain_step_kernel(Args a) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < a.n) chain_env(a, e);
+  if (e < a.n) chain_env<WARM>(a, e);
 }
 #define EXPORT extern "C" __attribute__((visibility("default")))
 #else
@@ -708,25 +800,28 @@ chain_step_kernel(Args a) {
 #endif
 
 // layout of the model this file is built for:
-// [L, K, NG, S_0..S_{NG-1}, NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE]
+// [L, K, NG, S_0..S_{NG-1}, NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS]
 EXPORT int chain_step_layout(int* out, int cap) {
   int v[] = {L_LVL, K_CH, NG, S_BASE, S_L0, S_L1, S_L2, NB, N_CONST,
-             N_SCALAR, JSTRIDE, PSTRIDE};
+             N_SCALAR, JSTRIDE, PSTRIDE, NPTS};
   int m = (int)(sizeof(v) / sizeof(v[0]));
   for (int i = 0; i < m && i < cap; ++i) out[i] = v[i];
   return m;
 }
 
-// One policy step for n envs. On the card: launches on `stream` and
-// returns cudaGetLastError() (0 when the launch was accepted). In the host
-// build: runs the envs in a loop and returns 0.
+// One policy step for n envs. warm != 0 selects K4: anc / anc_o are the
+// (3, NPTS, n) anchors in and out (they may be the same buffer); with
+// warm == 0 (K1) they are not touched. On the card: launches on `stream`
+// and returns cudaGetLastError() (0 when the launch was accepted). In the
+// host build: runs the envs in a loop and returns 0.
 EXPORT int chain_step_run(
     const float* lp_base, const float* lp_lvl, const float* mu,
     const float* targets, const float* ph, const int* r0, const int* c0,
     const float* pos, const float* quat, const float* vel, const float* q,
     const float* qd, const float* cst, float* pos_o, float* quat_o,
     float* vel_o, float* q_o, float* qd_o, float* tau_o, float* body_f_o,
-    int n, int S, int decimation, int substeps, void* stream) {
+    const float* anc, float* anc_o, int n, int S, int decimation,
+    int substeps, int warm, void* stream) {
   Args a;
   a.lp_base = lp_base; a.lp_lvl = lp_lvl; a.mu = mu; a.targets = targets;
   a.ph = ph; a.r0 = r0; a.c0 = c0; a.pos = pos; a.quat = quat; a.vel = vel;
@@ -734,15 +829,23 @@ EXPORT int chain_step_run(
   a.vel_o = vel_o; a.q_o = q_o; a.qd_o = qd_o; a.tau_o = tau_o;
   a.body_f_o = body_f_o; a.n = n; a.S = S; a.decimation = decimation;
   a.substeps = substeps;
+  a.anc = warm ? anc : nullptr;
+  a.anc_o = warm ? anc_o : nullptr;
   if (n <= 0) return 0;
 #if defined(__CUDACC__)
   const int threads = 32;
   const int blocks = (n + threads - 1) / threads;
-  chain_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  if (warm)
+    chain_step_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  else
+    chain_step_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  for (int e = 0; e < n; ++e) chain_env(a, e);
+  for (int e = 0; e < n; ++e) {
+    if (warm) chain_env<true>(a, e);
+    else chain_env<false>(a, e);
+  }
   return 0;
 #endif
 }

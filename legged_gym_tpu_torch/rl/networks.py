@@ -1,11 +1,12 @@
-"""Actor-critic network, inference half (rsl_rl's ``ActorCritic``,
+"""Actor-critic network (rsl_rl's ``ActorCritic``,
 legged_robot_config.py:213-224): ELU MLPs [512, 256, 128] for actor and
 critic, plus a state-independent per-dim action std parameter held as std
-(not log-std), initialized to ``init_noise_std``.
+(not log-std), initialized to ``init_noise_std``; and the Gaussian
+log-prob / entropy / KL the PPO update (rl/ppo.py) needs.
 
 Weights are laid out as ``nn.Linear`` (out, in); the JAX package keeps
-(in, out) — interop.actor_critic_from_jax transposes. PPO's update is
-later work.
+(in, out) — interop.actor_critic_from_jax transposes. The recurrent
+(LSTM) variant is not ported.
 """
 from __future__ import annotations
 
@@ -53,12 +54,23 @@ class ActorCritic(nn.Module):
                                            float(init_noise_std)))
 
     @classmethod
-    def from_cfg(cls, obs_dim, num_actions, policy_cfg, generator=None):
-        if getattr(policy_cfg, "rnn_type", None) is not None:
-            raise NotImplementedError("the recurrent policy is not ported")
+    def from_cfg(cls, obs_dim, num_actions, policy_cfg, generator=None,
+                 critic_obs_dim=None):
+        """Freshly initialized from a PolicyCfg (the JAX package's
+        ``init_actor_critic``): orthogonal weights drawn from
+        ``generator``, zero biases, std = init_noise_std."""
+        if is_recurrent(policy_cfg):
+            raise NotImplementedError(
+                "the recurrent policy (ActorCriticRecurrent) is not ported "
+                "yet (see ROADMAP.md Queue 1)")
         return cls(obs_dim, num_actions, policy_cfg.actor_hidden_dims,
                    policy_cfg.critic_hidden_dims, policy_cfg.activation,
-                   policy_cfg.init_noise_std, generator=generator)
+                   policy_cfg.init_noise_std, critic_obs_dim=critic_obs_dim,
+                   generator=generator)
+
+
+def is_recurrent(policy_cfg):
+    return getattr(policy_cfg, "rnn_type", None) is not None
 
 
 def actor_mean(model, obs):
@@ -75,11 +87,27 @@ def gaussian_log_prob(x, mean, std):
                      - 0.5 * math.log(2.0 * math.pi), dim=-1)
 
 
-def sample_action(model, obs, generator=None):
-    """Returns (action, log_prob, mean, std)."""
+def gaussian_entropy(std):
+    return torch.sum(0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(std),
+                     dim=-1)
+
+
+def gaussian_kl(mu_old, std_old, mu_new, std_new):
+    """Per-sample KL(old || new), rsl_rl's adaptive-LR formula (the 1e-5
+    sits inside the log)."""
+    return torch.sum(
+        torch.log(std_new / std_old + 1e-5)
+        + (torch.square(std_old) + torch.square(mu_old - mu_new))
+        / (2.0 * torch.square(std_new)) - 0.5, dim=-1)
+
+
+def sample_action(model, obs, generator=None, eps=None):
+    """Returns (action, log_prob, mean, std). ``eps``: the standard-normal
+    draw to use instead of one from ``generator`` (parity tests)."""
     mean = actor_mean(model, obs)
     std = model.std.expand_as(mean)
-    eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                      device=mean.device)
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                          device=mean.device)
     action = mean + std * eps
     return action, gaussian_log_prob(action, mean, std), mean, std

@@ -1,7 +1,8 @@
 """The fused physics kernel against its plain PyTorch version, env by env,
-at the main path's shape (go1, rough terrain, 1800 envs) on the card.
+at the main paths' shapes on the card: K1 for go1 on rough terrain at 1800
+envs, K4 (friction anchors) for aliengo on the plane at 4096 envs.
 
-    python -m legged_gym_tpu_torch.scripts.kernel_numerics
+    python -m legged_gym_tpu_torch.scripts.kernel_numerics [--task aliengo]
 
 For a fresh reset, the state after the reset step and a settled state
 (30 zero-action steps), it prints per output the max / 99th percentile /
@@ -48,11 +49,14 @@ def rough_cfg(n=1800):
 
 def kernel_args(env, state):
     """Kernel arguments for ``state``: default-pose targets and the cached
-    contact window (the center crop of the state's terrain window)."""
-    lo = (env.patch_cache_S - env.contact_patch_S) // 2
-    hi = lo + env.contact_patch_S
-    patch = (state.patch_T[lo:hi, lo:hi].contiguous(), state.patch_r0 + lo,
-             state.patch_c0 + lo)
+    contact window (the center crop of the state's terrain window; on a
+    plane the engine's zero window)."""
+    patch = None
+    if env.grid is not None:
+        lo = (env.patch_cache_S - env.contact_patch_S) // 2
+        hi = lo + env.contact_patch_S
+        patch = (state.patch_T[lo:hi, lo:hi].contiguous(),
+                 state.patch_r0 + lo, state.patch_c0 + lo)
     targets = env._dflt.expand(env.num_dof, state.n)
     return env.chain_engine.level_args(state.physics, state.link_params,
                                        state.friction, targets, patch)
@@ -70,6 +74,22 @@ def per_env_errors(ref, out):
     """name -> (N,) max |ref - out| over each env's entries."""
     return {name: (r - o).abs().reshape(-1, r.shape[-1]).amax(0)
             for name, r, o in zip(NAMES, ref, out)}
+
+
+# anchors [m]: positions of contact points, carried like pos
+ANCHOR_ATOL = STATE_ATOL
+# an anchor below this is live; the sentinel is 1e6
+ANCHOR_LIVE = 1e5
+
+
+def anchor_errors(ref, out):
+    """Packed anchors (3, n_points, N) of the plain version and the kernel:
+    (max |ref - out| where both are live, entries live in both, entries
+    whose live / sentinel state differs)."""
+    live_r, live_o = ref < ANCHOR_LIVE, out < ANCHOR_LIVE
+    both = live_r & live_o
+    err = float(((ref - out).abs() * both).max()) if both.any() else 0.0
+    return err, int(both.sum()), int((live_r != live_o).sum())
 
 
 def over_tolerance(errs, tol):
@@ -134,13 +154,27 @@ def _report(tag, ref, out, settled):
           f"max/p99/median {stats}", flush=True)
 
 
-def main():
-    env, _ = registry.make_env(cfg=rough_cfg(), device="cuda")
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", choices=("go1", "aliengo"), default="go1",
+                    help="go1: K1 on rough terrain at 1800 envs; aliengo: "
+                         "K4 (friction anchors) on the plane at 4096 envs")
+    task = ap.parse_args(argv).task
+    if task == "go1":
+        env, _ = registry.make_env(cfg=rough_cfg(), device="cuda")
+    else:
+        env, _ = registry.make_env("aliengo", device="cuda")
     cc = env.chain_engine.cc
+    layout = chain_kernel.model_layout(cc.cm)
     cv = chain_step.const_tensors(cc, "cuda")
     table = torch.as_tensor(chain_kernel.const_table(cc), device="cuda")
-    libs = {"no-fma": chain_kernel.load_library("cuda"),
-            "fma": chain_kernel.load_library("cuda", numerics=())}
+    libs = {"no-fma": chain_kernel.load_library("cuda", layout=layout),
+            "fma": chain_kernel.load_library("cuda", numerics=(),
+                                             layout=layout)}
+    for line in chain_kernel.build_log.get("cuda", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}")
     state = env.initial_state()
     zeros = torch.zeros((env.num_envs, env.num_actions), device="cuda")
     for label, steps in (("fresh reset", 0), ("reset step", 1),
@@ -148,18 +182,26 @@ def main():
         for _ in range(steps):
             state, _ = env.step(state, zeros)
         args = kernel_args(env, state)
+        anchors = state.contact_ws
         settled = label == "settled"
-        ref = chain_step.run_decimation_chain(cc, *args, cv=cv)
-        ref_cpu = chain_step.run_decimation_chain(cc, *[a.cpu()
-                                                        for a in args])
+        ref = chain_step.run_decimation_chain(cc, *args, cv=cv,
+                                              anchors=anchors)
+        ref_cpu = chain_step.run_decimation_chain(
+            cc, *[a.cpu() for a in args],
+            anchors=None if anchors is None else anchors.cpu())
         _report(f"[{label}] plain on CPU vs card", [r.cpu() for r in ref],
                 ref_cpu, settled)
         for name, lib in libs.items():
-            out = chain_kernel.launch(lib, cc, args, table)
+            out = chain_kernel.launch(lib, cc, args, table, anchors)
             torch.cuda.synchronize()
             _report(f"[{label}] kernel {name} vs plain", ref, out, settled)
-            ms = cuda_ms(lambda: chain_kernel.launch(lib, cc, args, table),
-                         50)
+            if anchors is not None:
+                err, n_live, n_diff = anchor_errors(ref[7], out[7])
+                print(f"[{label}] kernel {name} anchors: max err {err:.2e} "
+                      f"over {n_live} live entries, {n_diff} differ in "
+                      f"live / sentinel state", flush=True)
+            ms = cuda_ms(lambda: chain_kernel.launch(lib, cc, args, table,
+                                                     anchors), 50)
             print(f"[{label}] kernel {name}: {ms:.4f} ms/launch", flush=True)
 
 

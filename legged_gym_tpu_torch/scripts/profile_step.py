@@ -3,10 +3,16 @@
 window of steady steps.
 
     python -m legged_gym_tpu_torch.scripts.profile_step [--steps 20]
+    python -m legged_gym_tpu_torch.scripts.profile_step --train \
+        [--task go1|aliengo] [--iterations 2]
 
 Prints the wall time per step, the device busy time per step (sum of
 kernel times), the idle share, the number of kernel launches per step and
 the top kernels by device time. Writes a Chrome trace under chiprun_out/.
+With ``--train`` the unit is one PPO iteration (24-step rollout, GAE, 20
+minibatch steps) through ``registry.make_runner``: go1 on rough terrain at
+1800 envs, or aliengo at its own 4096; the rollout / update split comes
+from a second, unprofiled window; no trace is written unless asked.
 """
 from __future__ import annotations
 
@@ -25,8 +31,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--num_envs", type=int, default=1800)
-    ap.add_argument("--trace", default="chiprun_out/profile_step.json")
+    ap.add_argument("--trace", default=None,
+                    help="Chrome trace path (default: "
+                         "chiprun_out/profile_step.json, none with --train)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile PPO iterations instead of env steps")
+    ap.add_argument("--task", choices=("go1", "aliengo"), default="go1")
+    ap.add_argument("--iterations", type=int, default=2)
     args = ap.parse_args(argv)
+    if args.train:
+        return profile_train(args)
+    if args.trace is None:
+        args.trace = "chiprun_out/profile_step.json"
     env, _ = registry.make_env(cfg=rough_cfg(args.num_envs), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = env.num_envs
@@ -47,8 +63,13 @@ def main(argv=None):
                 state, _ = env.step(state, actions())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    # device-side events (kernels, copies): their time ranges are on the
-    # card's timeline
+    _report(prof, wall, args.steps, "step", f"{n} envs")
+    _export(prof, args.trace)
+
+
+def _report(prof, wall, units, unit, what):
+    """Device-side events (kernels, copies) of the profile, per ``unit``:
+    their time ranges are on the card's timeline."""
     kernels = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -57,18 +78,63 @@ def main(argv=None):
             k[1] += e.time_range.elapsed_us()
     dev_us = sum(t for _, t in kernels.values())
     launches = sum(c for c, _ in kernels.values())
-    step_ms = 1e3 * wall / args.steps
-    busy_ms = 1e-3 * dev_us / args.steps
-    print(f"{n} envs: {step_ms:.3f} ms/step wall, {busy_ms:.3f} ms/step "
-          f"device busy, idle share {1 - busy_ms / step_ms:.3f}, "
-          f"{launches / args.steps:.0f} kernel launches/step "
+    unit_ms = 1e3 * wall / units
+    busy_ms = 1e-3 * dev_us / units
+    print(f"{what}: {unit_ms:.3f} ms/{unit} wall, {busy_ms:.3f} ms/{unit} "
+          f"device busy, idle share {1 - busy_ms / unit_ms:.3f}, "
+          f"{launches / units:.0f} kernel launches/{unit} "
           f"({torch.cuda.get_device_name(0)}; profiler on)")
     for name, (c, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"  {t / args.steps:9.1f} us/step {c / args.steps:6.1f}x  "
-              f"{name[:90]}")
-    if args.trace:
-        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(args.trace)
+        print(f"  {t / units:9.1f} us/{unit} {c / units:7.1f}x  {name[:90]}")
+
+
+def _export(prof, trace):
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
+
+
+def profile_train(args):
+    if args.task == "go1":
+        env, _ = registry.make_env(cfg=rough_cfg(args.num_envs),
+                                   device="cuda")
+    else:
+        env, _ = registry.make_env("aliengo", device="cuda")
+    runner, tcfg = registry.make_runner(env, name=args.task, log_root=None)
+    horizon = tcfg.runner.num_steps_per_env
+    runner.learn(2, init_at_random_ep_len=True)            # warm up
+    # unprofiled window: wall time and the rollout / update split
+    runner.learn_fn.profile = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.learn(args.iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = runner.learn_fn.times
+    it = args.iterations
+    print(f"{args.task}, {env.num_envs} envs (profiler off): "
+          f"{1e3 * wall / it:.1f} ms/iteration wall = "
+          f"{horizon * env.num_envs * it / wall:.0f} policy-steps/s; "
+          f"rollout {1e3 * sum(t['rollout_s'] for t in times) / it:.1f} ms, "
+          f"update {1e3 * sum(t['update_s'] for t in times) / it:.1f} ms "
+          f"({torch.cuda.get_device_name(0)})")
+    runner.learn_fn.profile = False
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.learn(args.iterations)
+        torch.cuda.synchronize()
+        wall_on = time.perf_counter() - t0
+    _report(prof, wall_on, it, "iteration",
+            f"{args.task}, {env.num_envs} envs")
+    print(f"idle share against the profiler-off wall time: "
+          f"{1 - _busy_s(prof) / wall:.3f}")
+    _export(prof, args.trace)
+
+
+def _busy_s(prof):
+    return 1e-6 * sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 if __name__ == "__main__":

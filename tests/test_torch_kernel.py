@@ -5,8 +5,8 @@ PyTorch version (physics/chain_step.py).
   same per-env arithmetic as the card, and the wrapper's contract
   (device dispatch, refused variants and models) is checked.
 - On the card (marker ``cuda``, skipped without one): the CUDA build at
-  the main path's shape, 1800 rough-terrain go1 envs, on a fresh reset and
-  on a settled state. Run there without the JAX-side conftest:
+  the main paths' shapes — K1 at 1800 rough-terrain go1 envs, K4 (friction
+  anchors) at 4096 aliengo envs — on a fresh reset and on a settled state. Run there without the JAX-side conftest:
   ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel.py``.
 
 This file imports no JAX.
@@ -19,7 +19,8 @@ import torch
 
 from legged_gym_tpu_torch import registry
 from legged_gym_tpu_torch.physics import chain_kernel, chain_step
-from legged_gym_tpu_torch.scripts.kernel_numerics import (kernel_args,
+from legged_gym_tpu_torch.scripts.kernel_numerics import (anchor_errors,
+                                                        kernel_args,
                                                         per_env_errors,
                                                         rough_cfg,
                                                         tolerances)
@@ -79,7 +80,7 @@ def test_cpu_tensors_run_the_plain_version(cpu_env):
 
 @pytest.mark.parametrize("flag", [
     {"plane_per_step": False}, {"wall_thresh": 0.075},
-    {"torque_mode": True}, {"warm_start": True}])
+    {"torque_mode": True}, {"warm_start": True, "plane_per_step": False}])
 def test_wrapper_refuses_unported_variants(cpu_env, flag):
     env = cpu_env
     cc = dataclasses.replace(env.chain_engine.cc, **flag)
@@ -150,7 +151,8 @@ def test_wrapper_refuses_on_card(cuda_env):
     env = cuda_env
     args = kernel_args(env, env.initial_state())
     for flag in ({"plane_per_step": False}, {"torque_mode": True},
-                 {"warm_start": True}, {"wall_thresh": 0.075}):
+                 {"warm_start": True, "torque_mode": True},
+                 {"wall_thresh": 0.075}):
         cc = dataclasses.replace(env.chain_engine.cc, **flag)
         with pytest.raises(NotImplementedError):
             chain_kernel.run_decimation_cuda(cc, *args)
@@ -158,3 +160,34 @@ def test_wrapper_refuses_on_card(cuda_env):
     mixed[7] = mixed[7].cpu()
     with pytest.raises(ValueError):
         chain_kernel.run_decimation_cuda(env.chain_engine.cc, *mixed)
+
+
+@pytest.mark.cuda
+def test_k4_kernel_matches_plain_on_card():
+    """Kernel variant K4 (warm-start friction anchors) at aliengo's own
+    4096 envs: outputs at the card's tolerances, anchors within 5e-3 m,
+    every anchor live in both; the env step launches it once per step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    env, _ = registry.make_env("aliengo", device="cuda")
+    cc = env.chain_engine.cc
+    state = env.initial_state()
+    zeros = torch.zeros((env.num_envs, env.num_actions), device="cuda")
+    for settled in (False, True):
+        args = kernel_args(env, state)
+        ref = chain_step.run_decimation_chain(cc, *args,
+                                              anchors=state.contact_ws)
+        out = chain_kernel.run_decimation_anchored_cuda(cc, *args,
+                                                        state.contact_ws)
+        torch.cuda.synchronize()
+        _assert_close(ref[:7], out[:7], settled)
+        err, _, n_diff = anchor_errors(ref[7], out[7])
+        assert err <= 5e-3 and n_diff == 0
+        before = chain_kernel.run_decimation_anchored_cuda.launches
+        k1_before = chain_kernel.run_decimation_cuda.launches
+        for _ in range(30):
+            state, _ = env.step(state, zeros)
+        assert chain_kernel.run_decimation_anchored_cuda.launches \
+            == before + 30
+        assert chain_kernel.run_decimation_cuda.launches == k1_before
