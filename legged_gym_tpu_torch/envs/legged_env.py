@@ -1,13 +1,15 @@
 """The locomotion environment: the reference's LeggedRobot task
 (legged_robot.py:51-975) as one step function over batch-last tensors.
 
-Ported path: position drive (``control_type="P"``) through the fused
-chain physics (physics/chain_engine.py: the CUDA kernel on the card, its
-plain version on the CPU), no actuator network (the Go1 UniNet output is
-discarded by the reference, config.ControlCfg), heightfield or plane
-terrain, with or without warm-start friction anchors. Everything else
-(SEA / UniNet drives, V / T control, trimesh, self-collision, privileged
-observations) raises NotImplementedError. The env simulates exactly ``num_envs`` envs.
+Ported paths, both through the fused chain physics
+(physics/chain_engine.py: the CUDA kernel on the card, its plain version
+on the CPU): position drive (``control_type="P"``, the Go1 UniNet output
+being discarded by the reference, config.ControlCfg) and the SEA torque
+drive (ANYmal's actuator LSTM evaluated once per sim dt between kernel
+launches); plane, heightfield or trimesh terrain; with or without
+warm-start friction anchors. Everything else (an applied UniNet, V / T
+control, self-collision, per-link damping, privileged observations)
+raises NotImplementedError. The env simulates exactly ``num_envs`` envs.
 
 Layout: internal tensors are batch-LAST; the policy boundary (obs /
 actions) is batch-first. Random draws come from one ``torch.Generator``
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -76,6 +79,9 @@ class EnvState:
     # static-friction anchor carry when cfg.sim.contact_warm_start: packed
     # (3, n_points, N) (physics/chain_step.py: split_anchors), else None
     contact_ws: Optional[torch.Tensor] = None
+    # recurrent actuator-net state: {"h", "c"} each (2, 8, nq, N) for the
+    # SEA LSTM, {} without an applied actuator net
+    actuator_state: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n(self):
@@ -129,8 +135,16 @@ class LeggedEnv:
         ctrl = cfg.control
         if ctrl.control_type != "P":
             raise _not_ported(f"control_type {ctrl.control_type!r}")
+        # the SEA LSTM is applied (anymal.py:52-55); with the reference's
+        # discard quirk (config.ControlCfg) a net's output never reaches
+        # the dynamics and its compute is skipped
+        self._sea = None
         if ctrl.use_actuator_network and not ctrl.actuator_net_discard_output:
-            raise _not_ported("an applied actuator network (SEA / UniNet)")
+            net_file = assets.resolve(ctrl.actuator_net_file)
+            if "lstm" not in os.path.basename(net_file):
+                raise _not_ported("an applied UniNet actuator network")
+            from legged_gym_tpu_torch.actuators.sea_lstm import SEANet
+            self._sea = SEANet(net_file).to(self.device)
         if not cfg.sim.use_chain_engine:
             raise _not_ported("the general stacked engine")
         if cfg.asset.linear_damping or cfg.asset.angular_damping:
@@ -210,10 +224,15 @@ class LeggedEnv:
                              kd=self.d_gains,
                              fixed_base=cfg.asset.fix_base_link,
                              self_collision=cfg.asset.self_collisions == 0)
-        # numeric apparent-mass probe with the implicit PD servo impedance
+        # numeric apparent-mass probe at the default pose: with the
+        # implicit PD servo impedance for position-drive robots, without it
+        # for the SEA torque drive (probing with the servo overestimates
+        # the mass and the over-corrected stopping impulse micro-bounces
+        # the stance)
         self.engine.calibrate_contact_mass(
             self.default_dof_pos,
-            lambda n: broadcast_nominal(self.model, n, self.dtype))
+            lambda n: broadcast_nominal(self.model, n, self.dtype),
+            drive="torque" if self._sea is not None else "pd")
         self.chain_engine = ChainEngine(
             self.engine, decimation=cfg.control.decimation,
             patch_S=self.contact_patch_S,
@@ -555,7 +574,16 @@ class LeggedEnv:
             lin_vel_x_range=lin_vel_x_range,
             episode_sums={name: torch.zeros(n, dtype=self.dtype, device=dev)
                           for name in self.reward_scales},
-            contact_ws=self.chain_engine.init_anchors(n, dev, self.dtype))
+            contact_ws=self.chain_engine.init_anchors(n, dev, self.dtype),
+            actuator_state=self._init_actuator_state(n))
+
+    def _init_actuator_state(self, n):
+        if self._sea is None:
+            return {}
+        h, c = self._sea.init_state(self.num_dof * n, self.dtype,
+                                    self.device)
+        shape = (2, self._sea.hidden, self.num_dof, n)
+        return {"h": h.reshape(shape), "c": c.reshape(shape)}
 
     def reset(self):
         """(state, obs): global reset + one zero-action step."""
@@ -594,17 +622,39 @@ class LeggedEnv:
             contact_patch = (ph_T[lo:hi, lo:hi].contiguous(), pr0 + lo,
                              pc0 + lo)
 
-        # ---- position drive + decimation x sim (legged_robot.py:89-99) ----
-        targets = torch.clamp(a * cfg.control.action_scale + self._dflt,
-                              self._soft_lo, self._soft_hi)
-        out = self.chain_engine.step_decimation_pos(
-            state.physics, state.link_params, state.friction, targets,
-            contact_patch=contact_patch,
-            anchors=state.contact_ws if self._warm_start else None)
-        if self._warm_start:
-            physics, torques, contact_f, contact_ws = out
+        # ---- actuation + decimation x sim (legged_robot.py:89-99) ----
+        anchors = state.contact_ws if self._warm_start else None
+        contact_ws = None
+        if self._sea is not None:
+            # SEA torque drive (anymal.py:71-81): net input per sim dt =
+            # (pos target - q, qd), targets NOT clipped to the soft limits;
+            # the LSTM state advances per sim dt, between kernel launches
+            targets = a * cfg.control.action_scale + self._dflt
+            nq = self.num_dof
+
+            def sea_tau(q, qd, act):
+                tau, (h, c) = self._sea(
+                    (targets - q).reshape(nq * n), qd.reshape(nq * n),
+                    (act["h"].reshape(2, -1, nq * n),
+                     act["c"].reshape(2, -1, nq * n)))
+                return tau.reshape(nq, n), {"h": h.reshape(act["h"].shape),
+                                            "c": c.reshape(act["c"].shape)}
+
+            out = self.chain_engine.step_decimation_torque_fn(
+                state.physics, state.link_params, state.friction, sea_tau,
+                state.actuator_state, contact_patch=contact_patch,
+                anchors=anchors)
+            physics, torques, contact_f, actuator_state = out[:4]
         else:
-            (physics, torques, contact_f), contact_ws = out, None
+            targets = torch.clamp(a * cfg.control.action_scale + self._dflt,
+                                  self._soft_lo, self._soft_hi)
+            out = self.chain_engine.step_decimation_pos(
+                state.physics, state.link_params, state.friction, targets,
+                contact_patch=contact_patch, anchors=anchors)
+            physics, torques, contact_f = out[:3]
+            actuator_state = state.actuator_state
+        if self._warm_start:
+            contact_ws = out[-1]
 
         # ---- post-physics bookkeeping ----
         episode_length = state.episode_length + 1
@@ -768,6 +818,9 @@ class LeggedEnv:
         feet_air_time = feet_air_time * (~done)[None, :]
         ep_len_sum = torch.sum(episode_length * done)
         episode_length = torch.where(done, 0, episode_length)
+        # actuator recurrent state zeroed per reset env (anymal.py:56-60)
+        actuator_state = {k: v * (~done).to(v.dtype)
+                          for k, v in actuator_state.items()}
 
         # episode logging sums over envs that finished this step
         ep_out = {name: torch.sum(episode_sums[name] * donef)
@@ -795,7 +848,7 @@ class LeggedEnv:
             env_origin=env_origin, friction=friction,
             mass_scales=mass_scales, link_params=link_params,
             lin_vel_x_range=lin_vel_x_range, episode_sums=episode_sums,
-            contact_ws=contact_ws)
+            contact_ws=contact_ws, actuator_state=actuator_state)
         tr = Transition(
             obs=obs.T, reward=reward, done=done, time_out=time_out,
             episode_sums=ep_out, episode_count=torch.sum(donef),

@@ -81,7 +81,8 @@ def train_state_from_jax(params_np, opt_state_np, lr, activation="elu",
 def env_state_from_jax(state_np, device="cpu"):
     """A JAX ``EnvState`` whose leaves are numpy arrays -> the port's
     EnvState on ``device``. The JAX PRNG key has no counterpart (the port's
-    env holds a torch.Generator); the actuator carry is not ported. The
+    env holds a torch.Generator). The actuator carry (the SEA LSTM's
+    ``{"h", "c"}``, or ``{}``) has the same layout in both. The
     warm-start anchors (a list of (3, S, K, N) arrays per point group, or
     None) become the port's packed (3, n_points, N) tensor."""
     def t(a):
@@ -106,7 +107,9 @@ def env_state_from_jax(state_np, device="cpu"):
         link_params=t(state_np.link_params),
         lin_vel_x_range=t(state_np.lin_vel_x_range),
         episode_sums={k: t(v) for k, v in state_np.episode_sums.items()},
-        contact_ws=anchors_from_jax(state_np.contact_ws, device))
+        contact_ws=anchors_from_jax(state_np.contact_ws, device),
+        actuator_state={k: t(v) for k, v in
+                        (state_np.actuator_state or {}).items()})
 
 
 def anchors_from_jax(groups_np, device="cpu"):

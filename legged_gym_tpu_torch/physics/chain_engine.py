@@ -2,10 +2,13 @@
 substeps) as one call.
 
 On a CUDA device the step runs as one launch of the hand-written kernel
-(chain_kernel.run_decimation_cuda, or run_decimation_anchored_cuda when
-the contact law carries warm-start friction anchors); on the CPU it runs
-the plain PyTorch version (chain_step.run_decimation_chain). Handles the joint-order <->
-chain-layout conversions (index gathers) and the per-env contact window.
+(chain_kernel.run_decimation picks the wrapper of the configuration's
+variant, K1-K4); on the CPU it runs the plain PyTorch version
+(chain_step.run_decimation_chain). The torque-drive step for per-sim-dt
+actuator nets (step_decimation_torque_fn) is ``decimation`` launches of
+one sim dt each with the net evaluated in between. Handles the joint-order
+<-> chain-layout conversions (index gathers) and the per-env contact
+window.
 """
 from __future__ import annotations
 
@@ -89,6 +92,7 @@ class ChainEngine:
         self._li_flat = cm.LI.reshape(-1)                            # (L*K,)
         self.grid = None
         self._dev_cache = {}
+        self._cc_sea = None
 
     def bind_grid(self, grid):
         """Set the heightfield geometry (None = flat plane)."""
@@ -104,26 +108,56 @@ class ChainEngine:
         chain_step.check_variant(self.cc)
         self.grid = grid
         self._dev_cache = {}
+        self._cc_sea = None
+
+    @property
+    def cc_sea(self):
+        """The torque-drive twin of ``cc``: one sim dt per launch
+        (decimation 1), ``torque_mode`` on, and the PASSIVE joint impedance
+        as implicit_d (a torque-driven joint has no PD servo term; the
+        servo's impedance here would over-damp the SEA drive). Built once
+        per bound grid."""
+        if self._cc_sea is None:
+            cm = self.cm
+            imp = np.zeros((cm.L, cm.K), float)
+            imp[cm.active] = np.asarray(
+                self.engine._imp_passive[:, 0], float)[cm.J[cm.active]]
+            self._cc_sea = dataclasses.replace(
+                self.cc, decimation=1, torque_mode=True, implicit_d=imp)
+        return self._cc_sea
+
+    def _step_consts(self, cc, device):
+        """The plain version's dict and, on CUDA, the kernel's table for
+        one ChainConsts on ``device``."""
+        table = None
+        if torch.device(device).type == "cuda":
+            table = torch.as_tensor(chain_kernel.const_table(cc),
+                                    device=device)
+        return {"cv": chain_step.const_tensors(cc, device), "table": table}
 
     def _consts(self, device):
         """Per-device constants: the plain version's dict, the kernel's
         table (on CUDA) and the index tensors."""
         key = str(device)
         if key not in self._dev_cache:
-            c = {"cv": chain_step.const_tensors(self.cc, device),
+            c = {**self._step_consts(self.cc, device),
                  "lvl_index": torch.as_tensor(self._lvl_index,
                                               device=device),
                  "lvl_mask": torch.as_tensor(self._lvl_mask, device=device),
                  "from_index": torch.as_tensor(self._from_index,
                                                device=device),
                  "li_flat": torch.as_tensor(self._li_flat, dtype=torch.long,
-                                            device=device),
-                 "table": None}
-            if torch.device(device).type == "cuda":
-                c["table"] = torch.as_tensor(
-                    chain_kernel.const_table(self.cc), device=device)
+                                            device=device)}
             self._dev_cache[key] = c
         return self._dev_cache[key]
+
+    def _sea_consts(self, device):
+        """_step_consts of ``cc_sea``, built once per device, not per
+        launch."""
+        c = self._consts(device)
+        if "sea" not in c:
+            c["sea"] = self._step_consts(self.cc_sea, device)
+        return c["sea"]
 
     # ------------------------------------------------------ conversions
 
@@ -178,8 +212,9 @@ class ChainEngine:
 
     def level_args(self, state: PhysicsState, link_params, friction,
                    targets, contact_patch=None):
-        """The arguments of run_decimation_cuda / run_decimation_chain
-        (after ``cc``) for this state, in the chain layout, contiguous."""
+        """The arguments of chain_kernel.run_decimation /
+        run_decimation_chain (after ``cc``) for this state, in the chain
+        layout, contiguous."""
         lp_base, lp_lvl = self.level_link_params(link_params)
         if contact_patch is not None:
             ph, r0, c0 = contact_patch
@@ -198,23 +233,61 @@ class ChainEngine:
         (state', torques (nq, N), body_forces (3, nb, N)); body_forces is
         the net-contact-force sensor of the last substep. With
         ``cc.warm_start`` and ``anchors`` (init_anchors layout) a 4th
-        element: the updated anchors. CUDA tensors launch the kernel (or
-        raise); CPU tensors run the plain version."""
+        element: the updated anchors. CUDA tensors launch the kernel of
+        the configuration's variant (K1, K4, or K2 on trimesh / with
+        per-sim-dt planes), or raise; CPU tensors run the plain version."""
         c = self._consts(state.pos.device)
         args = self.level_args(state, link_params, friction, targets,
                                contact_patch)
         track_anchors = self.cc.warm_start and anchors is not None
-        if track_anchors:
-            pos, quat, vel, q_l, qd_l, tau_l, body_f, anchors = \
-                chain_kernel.run_decimation_anchored_cuda(
-                    self.cc, *args, anchors, cv=c["cv"], consts=c["table"])
-        else:
-            pos, quat, vel, q_l, qd_l, tau_l, body_f = \
-                chain_kernel.run_decimation_cuda(self.cc, *args, cv=c["cv"],
-                                                 consts=c["table"])
+        out = chain_kernel.run_decimation(
+            self.cc, *args, anchors=anchors if track_anchors else None,
+            cv=c["cv"], consts=c["table"])
+        pos, quat, vel, q_l, qd_l, tau_l, body_f = out[:7]
         new_state = PhysicsState(pos=pos, quat=quat, vel=vel,
                                  q=self.from_level(q_l),
                                  qd=self.from_level(qd_l))
         if track_anchors:
-            return new_state, self.from_level(tau_l), body_f, anchors
+            return new_state, self.from_level(tau_l), body_f, out[7]
         return new_state, self.from_level(tau_l), body_f
+
+    def step_decimation_torque_fn(self, state: PhysicsState, link_params,
+                                  friction, tau_fn, carry,
+                                  contact_patch=None, anchors=None):
+        """Torque-drive policy step for per-sim-dt actuator nets (ANYmal's
+        SEA LSTM, anymal.py:71-81): ``decimation`` segments of one sim dt
+        each (kernel variant K3, one launch per segment on the card) with
+        ``tau_fn``, ``(q (nq,N), qd (nq,N), carry) -> (tau (nq,N),
+        carry')``, evaluated between them in plain torch ops. The contact
+        window is read by every segment; the anchors thread through, each
+        segment's output the next one's input.
+
+        Returns (state', torques (nq, N) of the last segment,
+        body_forces (3, nb, N), carry'[, anchors'])."""
+        dev = state.pos.device
+        cc = self.cc_sea
+        c = self._sea_consts(dev)
+        track_anchors = cc.warm_start and anchors is not None
+        if not track_anchors:
+            anchors = None
+        # everything but the torques and the state is shared by the
+        # segments (the targets slot is filled per segment below)
+        (lp_base, lp_lvl, mu, _, ph, r0, c0, pos, quat, vel, q_lvl,
+         qd_lvl) = self.level_args(state, link_params, friction, state.q,
+                                   contact_patch)
+        q, qd = state.q, state.qd
+        tau_l = body_f = None
+        for _ in range(self.cc.decimation):
+            tau, carry = tau_fn(q, qd, carry)
+            out = chain_kernel.run_decimation(
+                cc, lp_base, lp_lvl, mu, self.to_level(tau).contiguous(),
+                ph, r0, c0, pos, quat, vel, q_lvl, qd_lvl, anchors=anchors,
+                cv=c["cv"], consts=c["table"])
+            pos, quat, vel, q_lvl, qd_lvl, tau_l, body_f = out[:7]
+            if track_anchors:
+                anchors = out[7]
+            q, qd = self.from_level(q_lvl), self.from_level(qd_lvl)
+        new_state = PhysicsState(pos=pos, quat=quat, vel=vel, q=q, qd=qd)
+        if track_anchors:
+            return new_state, self.from_level(tau_l), body_f, carry, anchors
+        return new_state, self.from_level(tau_l), body_f, carry

@@ -1,16 +1,25 @@
 """The fused physics step as a hand-written CUDA kernel (csrc/chain_step.cu).
 
 Replaces the TPU kernel ``legged_gym_tpu/physics/pallas_step.py::
-run_decimation_pallas`` (its body is ``chain_step.one_sim_dt``) in two of
-its configurations. K1: position drive, contact plane sampled once per
-policy step, no friction anchors, no trimesh wall rule (go1). K4: K1 with
-warm-start friction anchors, one (3,) anchor per contact point carried in
-and out (aliengo) — :func:`run_decimation_anchored_cuda`, with its own
-launch count.
+run_decimation_pallas`` (its body is ``chain_step.one_sim_dt``) in all
+four of its configurations, behind one wrapper, :func:`run_decimation`,
+that keeps a launch count per variant (``launches``, keyed by
+``chain_step.variant``):
 
-Bound and design: a launch moves about 3.4 KB per env (the 24x24 contact
-patch is most of it), about 6 MB at 1800 envs, which is 2 us at 3.35 TB/s;
-its arithmetic is a long serial chain of 3x3 / 6x6 algebra per env, so the
+- K1: position drive, contact plane sampled once per policy step, no
+  friction anchors, no trimesh wall rule (go1, a1);
+- K4: K1 with warm-start friction anchors, one (3,) anchor per contact
+  point carried in and out (aliengo);
+- K2: the plane re-sampled at the first substep of every sim dt and / or
+  the trimesh wall rule (cassie), with or without anchors;
+- K3: ``targets`` is a held torque clipped to the effort limits (the SEA
+  drive of anymal, one launch per sim dt), with or without anchors, the
+  wall rule and per-sim-dt planes.
+
+Bound and design: a launch must move about 2.6 KB per env on go1 (1.1 KB
+of state, link parameters and outputs, and of the 24x24 contact patch the
+four corners of each of the 92 contact points' query cells), about 4.7 MB
+at 1800 envs, which is 1.4 us at 3.35 TB/s; its arithmetic is a long serial chain of 3x3 / 6x6 algebra per env, so the
 launch is bounded by latency. The kernel runs one thread per env with the
 whole state in registers and thread-local memory across the decimation
 loop, and reads the constants through the cache (see the note at the top
@@ -19,11 +28,11 @@ each way, +2 KB per env on aliengo) stay in global memory: each substep
 reads a point's anchor and writes the new one, env axis last so a warp's
 accesses coalesce, instead of adding 252 floats to the thread's stack.
 
-The point-group sizes and the number of report bodies are compiled in
-(``-D`` defines): one library per layout, built at first use and picked by
-the model (:func:`model_layout`).
+The model's shape (levels, chains, point-group sizes, report bodies) is
+compiled in (``-D`` defines): one library per layout, built at first use
+and picked by the model (:func:`model_layout`).
 
-Contract: :func:`run_decimation_cuda` takes and returns what
+Contract: the wrapper takes and returns what
 ``chain_step.run_decimation_chain`` does. Tensors on the CPU go to that
 plain version; tensors on one CUDA device launch the kernel or raise;
 anything else raises. There is no fallback from the card to the plain
@@ -70,11 +79,18 @@ HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC"]
 N_SCALAR = 32
 JSTRIDE = 42
 PSTRIDE = 11
+MAX_LVL = 8
 
-# ((S_BASE, S_L0, S_L1, S_L2), n_bodies) of the source's defaults
-GO1_LAYOUT = ((8, 4, 8, 9), 17)
+# (L, K, S_BASE, (S_0 .. S_{L-1}), n_bodies) of the source's defaults
+GO1_LAYOUT = (3, 4, 8, (4, 8, 9), 17)
+# flags of chain_step_run, mirrored by the #defines of chain_step.cu
+FLAG_WARM, FLAG_TORQUE, FLAG_PLANE_PER_DT = 1, 2, 4
 
 _libs = {}
+# per-launch lookups, kept off the hot path: id(chain model) -> (model,
+# layout), id(library) -> its layout dict
+_model_layouts = {}
+_lib_layouts = {}
 _build_lock = threading.Lock()
 # compiler output: kind -> the last build's, (kind, layout) -> that one's
 build_log = {}
@@ -92,34 +108,63 @@ def _nvcc():
     return found
 
 
+def _group_shape(cm):
+    """(levels, slots, widths) of the chain model's point groups."""
+    return (tuple(g.level for g in cm.groups),
+            tuple(g.offs.shape[0] for g in cm.groups),
+            tuple(g.offs.shape[1] for g in cm.groups))
+
+
 def model_layout(cm):
-    """((S_BASE, S_L0, S_L1, S_L2), n_bodies) of a chain model: the -D
-    defines its library is built with. Raises NotImplementedError for a
-    model the source cannot be built for (not L=3 x K=4 with a base point
-    group and one group per level)."""
-    levels = tuple(g.level for g in cm.groups)
-    widths = tuple(g.offs.shape[1] for g in cm.groups)
-    if (cm.L, cm.K) != (3, 4) or levels != (-1, 0, 1, 2) \
-            or widths != (1, 4, 4, 4):
+    """(L, K, S_BASE, (S_0 .. S_{L-1}), n_bodies) of a chain model: the -D
+    defines its library is built with. A level (or the base) without
+    contact points has size 0. Raises NotImplementedError for a model the
+    source cannot be built for: a chain shorter than L, a point group that
+    is not one slot row per chain, or a padded (inactive) point slot."""
+    hit = _model_layouts.get(id(cm))
+    if hit is not None and hit[0] is cm:
+        return hit[1]
+    levels, slots, widths = _group_shape(cm)
+    ok = (bool(np.all(cm.active))
+          and list(levels) == sorted(set(levels))
+          and all(-1 <= lv < cm.L for lv in levels)
+          and all(w == (1 if lv < 0 else cm.K)
+                  for lv, w in zip(levels, widths))
+          and all(bool(g.active.all()) for g in cm.groups))
+    if not ok:
         raise NotImplementedError(
-            f"the chain kernel is written for L=3, K=4 with a base point "
-            f"group and one group per level; this model has L={cm.L}, "
-            f"K={cm.K} and groups (level, width) "
-            f"{tuple(zip(levels, widths))}")
-    return tuple(g.offs.shape[0] for g in cm.groups), int(cm.n_bodies)
+            f"the chain kernel is written for K chains of L joints each "
+            f"and point groups filled on every chain; this model has "
+            f"L={cm.L}, K={cm.K}, joints active {cm.active.tolist()} and "
+            f"groups (level, slots, width) "
+            f"{tuple(zip(levels, slots, widths))}")
+    size = dict(zip(levels, slots))
+    layout = (int(cm.L), int(cm.K), size.get(-1, 0),
+              tuple(size.get(lv, 0) for lv in range(cm.L)), int(cm.n_bodies))
+    _model_layouts[id(cm)] = (cm, layout)
+    return layout
 
 
 def _lib_key(kind, numerics, layout):
-    sizes, nb = layout
+    L, K, s_base, s_lvls, nb = layout
     return (kind, tuple(numerics) if kind == "cuda" else (),
-            (tuple(sizes), nb))
+            (L, K, s_base, tuple(s_lvls), nb))
 
 
 def _build_spec(kind, numerics, layout):
     """(command without the output, output path) of one library."""
-    sizes, nb = layout
-    defines = [f"-D{name}={v}" for name, v in zip(
-        ("S_BASE", "S_L0", "S_L1", "S_L2", "NB"), tuple(sizes) + (nb,))]
+    L, K, s_base, s_lvls, nb = layout
+    if len(s_lvls) != L:
+        raise ValueError(f"layout {layout}: {len(s_lvls)} level sizes for "
+                         f"L={L}")
+    if L > MAX_LVL:
+        raise NotImplementedError(f"the chain kernel takes at most "
+                                  f"{MAX_LVL} levels, this model has {L}")
+    # one define per level (nvcc splits a -D value at its commas); levels
+    # the model does not have are 0
+    sizes = tuple(s_lvls) + (0,) * (MAX_LVL - L)
+    defines = [f"-DL_LVL={L}", f"-DK_CH={K}", f"-DS_BASE={s_base}"] \
+        + [f"-DS_L{l}={v}" for l, v in enumerate(sizes)] + [f"-DNB={nb}"]
     if kind == "cuda":
         cmd0, flags = [_nvcc()], NVCC_FLAGS + list(numerics) + defines
     else:
@@ -200,36 +245,40 @@ def build_libraries(layouts, kind="cuda", numerics=CUDA_NUMERICS):
 def library_layout(lib):
     """(L, K, NG, group sizes, n_bodies, N_CONST, N_SCALAR, JSTRIDE,
     PSTRIDE, NPTS) the library was built for."""
+    hit = _lib_layouts.get(id(lib))
+    if hit is not None and hit[0] is lib:
+        return hit[1]
     buf = (ctypes.c_int * 64)()
     m = lib.chain_step_layout(buf, 64)
     v = list(buf[:m])
     L, K, ng = v[0], v[1], v[2]
     sizes = tuple(v[3:3 + ng])
     nb, n_const, n_scalar, jstride, pstride, npts = v[3 + ng:9 + ng]
-    return dict(L=L, K=K, NG=ng, S=sizes, NB=nb, N_CONST=n_const,
-                N_SCALAR=n_scalar, JSTRIDE=jstride, PSTRIDE=pstride,
-                NPTS=npts)
+    layout = dict(L=L, K=K, NG=ng, S=sizes, NB=nb, N_CONST=n_const,
+                  N_SCALAR=n_scalar, JSTRIDE=jstride, PSTRIDE=pstride,
+                  NPTS=npts)
+    _lib_layouts[id(lib)] = (lib, layout)
+    return layout
 
 
 def check_model(cc, layout):
-    """Raise unless the chain model is the one the library was built for."""
+    """Raise unless the chain model is the one the library was built for
+    (``layout``: library_layout())."""
     cm = cc.cm
-    levels = tuple(g.level for g in cm.groups)
-    sizes = tuple(g.offs.shape[0] for g in cm.groups)
-    widths = tuple(g.offs.shape[1] for g in cm.groups)
-    want_levels = (-1,) + tuple(range(layout["L"]))
-    want_widths = (1,) + (layout["K"],) * layout["L"]
-    if (cm.L, cm.K) != (layout["L"], layout["K"]) \
-            or levels != want_levels or widths != want_widths \
-            or sizes != layout["S"] or cm.n_bodies != layout["NB"] \
-            or not all(g.active.all() for g in cm.groups) \
-            or (N_SCALAR, JSTRIDE, PSTRIDE) != (
-                layout["N_SCALAR"], layout["JSTRIDE"], layout["PSTRIDE"]):
+    levels, slots, widths = _group_shape(cm)
+    try:
+        L, K, s_base, s_lvls, nb = model_layout(cm)
+        same = ((L, K, nb) == (layout["L"], layout["K"], layout["NB"])
+                and (s_base,) + s_lvls == tuple(layout["S"]))
+    except NotImplementedError:
+        same = False
+    if not same or (N_SCALAR, JSTRIDE, PSTRIDE) != (
+            layout["N_SCALAR"], layout["JSTRIDE"], layout["PSTRIDE"]):
         raise NotImplementedError(
             f"the chain kernel is built for L={layout['L']}, "
             f"K={layout['K']}, point groups {layout['S']} and "
             f"{layout['NB']} report bodies; this model has L={cm.L}, "
-            f"K={cm.K}, groups {tuple(zip(levels, sizes, widths))} and "
+            f"K={cm.K}, groups {tuple(zip(levels, slots, widths))} and "
             f"{cm.n_bodies} bodies")
 
 
@@ -262,6 +311,7 @@ def const_table(cc) -> np.ndarray:
     scal[19] = cc.anchor_vmax
     scal[20] = cc.anchor_stale2
     scal[21] = cc.anchor_release_depth
+    scal[22] = cc.wall_thresh
     parts = [scal.astype(np.float32)]
     for l in range(cm.L):
         for k in range(cm.K):
@@ -339,20 +389,23 @@ def _prepare(cc, args, lib, consts=None, anchors=None):
 def launch(lib, cc, args, consts=None, anchors=None):
     """Run ``lib``'s chain step on ``args`` (all on one device: the CUDA
     build on the current stream of a CUDA device, the host build on the
-    CPU); validates the contract, allocates and returns the 7 outputs, and
-    the new anchors as an 8th when ``anchors`` (K4) is given."""
+    CPU) in the configuration ``cc`` selects; validates the contract,
+    allocates and returns the 7 outputs, and the new anchors (a buffer of
+    their own, never the input's) as an 8th when ``anchors`` is given."""
     ins, outs, consts, anchors_out = _prepare(cc, args, lib, consts, anchors)
     stream = None
     dev = ins[7].device
     if dev.type == "cuda":
         stream = torch.cuda.current_stream(dev).cuda_stream
     warm = anchors is not None
+    flags = (FLAG_WARM * warm + FLAG_TORQUE * bool(cc.torque_mode)
+             + FLAG_PLANE_PER_DT * (not cc.plane_per_step))
     ptrs = [t.data_ptr() for t in ins] + [consts.data_ptr()] + \
         [t.data_ptr() for t in outs] + \
         [anchors.data_ptr() if warm else None,
          anchors_out.data_ptr() if warm else None]
     err = lib.chain_step_run(*ptrs, ins[7].shape[-1], cc.patch_S,
-                             cc.decimation, cc.substeps, int(warm), stream)
+                             cc.decimation, cc.substeps, flags, stream)
     if err != 0:
         raise RuntimeError(f"chain_step kernel launch failed: CUDA error "
                            f"{err}")
@@ -369,56 +422,37 @@ def _one_device(tensors):
     return devices.pop()
 
 
-def run_decimation_cuda(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0,
-                        pos, quat, vel, q, qd, cv=None, consts=None):
-    """One policy step of physics for N envs (kernel variant K1).
+# kernel launches per variant ("K1", "K4", "K2", "K3": chain_step.variant);
+# run_decimation adds one where it launches the kernel, and nowhere else
+launches = {"K1": 0, "K4": 0, "K2": 0, "K3": 0}
+
+
+def run_decimation(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat,
+                   vel, q, qd, anchors=None, cv=None, consts=None):
+    """One policy step of physics for N envs (``cc.decimation`` sim dts of
+    ``cc.substeps`` substeps) in the configuration ``cc`` selects.
 
     Shapes: lp_base (10,N), lp_lvl (L,10,K,N), mu (N,), targets (L,K,N),
     ph (S,S,N), r0/c0 (N,) int32, pos (3,N), quat (4,N), vel (6,N),
-    q/qd (L,K,N); all float32 but r0/c0, contiguous.
-    Returns (pos, quat, vel, q, qd, tau (L,K,N), body_f (3,n_bodies,N)).
+    q/qd (L,K,N); all float32 but r0/c0, contiguous. ``targets`` is a joint
+    position, or with ``cc.torque_mode`` a held torque that is clipped to
+    the effort limits (the SEA path calls with decimation 1, once per sim
+    dt, the actuator net in between). ``anchors`` (needs ``cc.warm_start``):
+    (3, n_points, N) float32 contiguous, packed in the kernel's point order
+    (chain_step.split_anchors gives the per-group views).
+    Returns (pos, quat, vel, q, qd, tau (L,K,N), body_f (3,n_bodies,N)) and,
+    with ``anchors``, the new anchors (3, n_points, N) as an 8th.
 
     CPU tensors run the plain version (chain_step.run_decimation_chain,
     ``cv`` its cached constants); tensors on one CUDA device launch the
     kernel on the current stream (``consts``: the cached const_table() on
     that device), and each launch adds one to
-    ``run_decimation_cuda.launches``.
+    ``launches[chain_step.variant(cc, anchored)]``.
     """
+    if anchors is not None and not cc.warm_start:
+        raise ValueError("anchors given but cc.warm_start is off")
     args = (lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat, vel, q, qd)
-    dev = _one_device(args)
-    if dev.type == "cpu":
-        return chain_step.run_decimation_chain(cc, *args, cv=cv)
-    if dev.type != "cuda":
-        raise ValueError(f"no chain kernel for device {dev}")
-    with torch.cuda.device(dev):
-        out = launch(load_library("cuda", layout=model_layout(cc.cm)), cc,
-                     args, consts)
-    run_decimation_cuda.launches += 1
-    return out
-
-
-run_decimation_cuda.launches = 0
-
-
-def run_decimation_anchored_cuda(cc, lp_base, lp_lvl, mu, targets, ph, r0,
-                                 c0, pos, quat, vel, q, qd, anchors,
-                                 cv=None, consts=None):
-    """One policy step of physics with warm-start friction anchors (kernel
-    variant K4; ``cc.warm_start`` must be on).
-
-    The arguments of :func:`run_decimation_cuda` plus ``anchors``
-    (3, n_points, N) float32 contiguous, packed in the kernel's point order
-    (chain_step.split_anchors gives the per-group views). Returns the 7
-    outputs of run_decimation_cuda and the new anchors (3, n_points, N).
-
-    CPU tensors run the plain version; tensors on one CUDA device launch
-    the kernel, and each launch adds one to
-    ``run_decimation_anchored_cuda.launches``.
-    """
-    if not cc.warm_start:
-        raise ValueError("run_decimation_anchored_cuda needs cc.warm_start")
-    args = (lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat, vel, q, qd)
-    dev = _one_device(args + (anchors,))
+    dev = _one_device(args if anchors is None else args + (anchors,))
     if dev.type == "cpu":
         return chain_step.run_decimation_chain(cc, *args, cv=cv,
                                                anchors=anchors)
@@ -427,17 +461,15 @@ def run_decimation_anchored_cuda(cc, lp_base, lp_lvl, mu, targets, ph, r0,
     with torch.cuda.device(dev):
         out = launch(load_library("cuda", layout=model_layout(cc.cm)), cc,
                      args, consts, anchors)
-    run_decimation_anchored_cuda.launches += 1
+    launches[chain_step.variant(cc, anchored=anchors is not None)] += 1
     return out
-
-
-run_decimation_anchored_cuda.launches = 0
 
 
 def run_decimation_host(cc, *args, anchors=None):
     """The kernel source built with the host C++ compiler and run over CPU
-    tensors: the same per-env arithmetic as the card, for tests. With
-    ``anchors`` it runs K4 and returns the new anchors as an 8th output."""
+    tensors: the same per-env arithmetic as the card, for tests, in the
+    configuration ``cc`` selects. With ``anchors`` it returns the new
+    anchors as an 8th output."""
     tensors = args if anchors is None else args + (anchors,)
     if any(t.device.type != "cpu" for t in tensors):
         raise ValueError("run_decimation_host takes CPU tensors")

@@ -16,9 +16,13 @@ with ``warm_start`` and anchors given, the tangential contact force is
 the anchored static-friction law (contact.anchored_tangential) and the
 anchors ride along.
 
-Two kernel variants are ported: K1 (the above without anchors) and K4
-(K1 with warm-start friction anchors). The per-sim-dt plane refresh and
-trimesh wall rule (K2) and torque drive (K3) raise NotImplementedError.
+The four configurations of the kernel, all here: K1 (the above without
+anchors), K4 (K1 with warm-start friction anchors), K2 (the plane
+re-sampled at the first substep of every sim dt when ``plane_per_step``
+is off, and / or the trimesh wall rule when ``wall_thresh > 0``) and K3
+(``torque_mode``: ``targets`` is a held torque clipped to the effort
+limits, no PD). They combine freely; :func:`variant` names the one a
+``ChainConsts`` selects.
 
 Anchors travel as ONE packed tensor (3, n_points, N) in the kernel's point
 order: the base group's slots, then each level group slot-major,
@@ -64,11 +68,13 @@ class ChainConsts:
     baumgarte: float
     border_size: float
     horizontal_scale: float
-    # trimesh vertical-face rule: > 0 is kernel variant K2 (not ported)
+    # trimesh vertical-face rule (TerrainGrid.wall_thresh): > 0 makes a
+    # cell whose corner spread exceeds it collide as a flat floor at its
+    # min corner (kernel variant K2)
     wall_thresh: float
     patch_S: int
     # sample the contact plane once per POLICY step (True: K1, the main
-    # path) or once per sim dt (False: K2, not ported)
+    # path) or at the first substep of every sim dt (False: K2)
     plane_per_step: bool = True
     # anchored static friction (K4): with anchors given, the tangential
     # force is contact.anchored_tangential; the field names match
@@ -78,22 +84,32 @@ class ChainConsts:
     anchor_vmax: float = 1.0
     anchor_stale2: float = 0.01
     anchor_release_depth: float = 0.005
-    # torque drive (K3, not ported)
+    # torque drive (K3): ``targets`` is a held torque (L, K, N) clipped to
+    # the effort limits instead of PD position targets. ChainEngine builds
+    # a decimation=1 torque-mode ChainConsts whose implicit_d is the
+    # passive impedance; the actuator net re-evaluates between launches
     torque_mode: bool = False
 
 
-def check_variant(cc: ChainConsts):
-    """Accept the ported kernel variants (K1, and K4 = K1 + warm_start);
-    raise on the ones this port does not have yet (K2, K3)."""
-    if not cc.plane_per_step:
-        raise NotImplementedError(
-            "per-sim-dt contact planes (kernel variant K2) are not ported")
-    if cc.wall_thresh > 0.0:
-        raise NotImplementedError(
-            "the trimesh wall rule (kernel variant K2) is not ported")
+def variant(cc: ChainConsts, anchored=False) -> str:
+    """The kernel variant a configuration selects: "K3" with the torque
+    drive, else "K2" with per-sim-dt planes or the wall rule, else "K4"
+    when anchors ride along, else "K1". K2 and K3 may carry anchors too."""
     if cc.torque_mode:
-        raise NotImplementedError(
-            "torque drive (kernel variant K3) is not ported")
+        return "K3"
+    if not cc.plane_per_step or cc.wall_thresh > 0.0:
+        return "K2"
+    return "K4" if anchored else "K1"
+
+
+def check_variant(cc: ChainConsts):
+    """Every configuration of the step is ported (K1-K4 and their
+    combinations); raises only on one that makes no sense."""
+    if cc.wall_thresh < 0.0:
+        raise ValueError(f"wall_thresh {cc.wall_thresh} < 0")
+    if cc.substeps < 1 or cc.decimation < 1:
+        raise ValueError(f"substeps {cc.substeps}, decimation "
+                         f"{cc.decimation}: both must be >= 1")
 
 
 def n_points(cm) -> int:
@@ -259,8 +275,12 @@ def sample_patch_plane(cc: ChainConsts, cv, ph, pr0, pc0, x, y):
     patch ``ph`` (S, S, N) with window origin (pr0, pc0) (N,) in grid
     cells. x, y: (..., N). Indexes the four corners directly; the JAX
     package contracts one-hot rows instead, whose only two nonzero weights
-    give the same values."""
-    check_variant(cc)
+    give the same values.
+
+    With ``cc.wall_thresh > 0`` (trimesh) a query cell whose four corners
+    spread more than the threshold collides as a flat floor at its min
+    corner wherever that lies below the bilinear height (strictly: a
+    query on the min corner itself keeps the bilinear plane)."""
     S = cc.patch_S
     hs = cc.horizontal_scale
     dt = ph.dtype
@@ -289,6 +309,15 @@ def sample_patch_plane(cc: ChainConsts, cv, ph, pr0, pc0, x, y):
     h = txp0 * (1.0 - ty) + txp1 * ty
     dhdy = txp0 * -inv_hs + txp1 * inv_hs
     dhdx = gxp0 * (1.0 - ty) + gxp1 * ty
+    if cc.wall_thresh > 0.0:
+        m4 = torch.minimum(torch.minimum(h00, h10), torch.minimum(h01, h11))
+        big4 = torch.maximum(torch.maximum(h00, h10),
+                             torch.maximum(h01, h11))
+        mq = torch.where(big4 - m4 > cc.wall_thresh, m4, 1e9)
+        steep = mq < h
+        h = torch.where(steep, mq, h)
+        dhdx = torch.where(steep, 0.0, dhdx)
+        dhdy = torch.where(steep, 0.0, dhdy)
     return h, dhdx, dhdy
 
 
@@ -551,8 +580,10 @@ def compute_plane(cc: ChainConsts, cv, fk, ph, pr0, pc0):
 
 
 def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
-               state5, plane, anchors=None):
-    """One sim dt = ``substeps`` inner substeps against the cached planes.
+               state5, plane, anchors=None, patch=None):
+    """One sim dt = ``substeps`` inner substeps against the cached planes
+    ``plane``, or, with ``plane`` None, against planes sampled at the first
+    substep from ``patch`` = (ph, pr0, pc0) (``plane_per_step`` off).
 
     anchors: per-group list of (3,S,K,N) static-friction anchors when
     ``cc.warm_start`` (updated every substep and returned), else None.
@@ -560,17 +591,19 @@ def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
     Returns (state5', tau (L,K,N) last substep,
              body_f (3, n_bodies, N) net contact forces, last substep
              [, anchors' when cc.warm_start and anchors given])."""
-    check_variant(cc)
     cm = cc.cm
     pos, quat, vel, q, qd = state5
     n = pos.shape[-1]
     dtype, dev = pos.dtype, pos.device
     has_damping = bool(np.any(cm.damping != 0.0))
+    own_plane = plane is None
+    if own_plane:
+        plane = [None] * len(cm.groups)
     track_anchors = cc.warm_start and anchors is not None
     if track_anchors:
         anchors = list(anchors)
     tau = body_f = None
-    for _ in range(cc.substeps):
+    for s in range(cc.substeps):
         fk = fk_chain(cc, cv, pos, quat, vel, q, qd)
         f_base = torch.zeros((3, n), dtype=dtype, device=dev)
         n_base = torch.zeros((3, n), dtype=dtype, device=dev)
@@ -582,6 +615,10 @@ def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
         body_cols = [None] * cm.n_bodies
         for gi, g in enumerate(cm.groups):
             ppos, pvel = contact_points_group(cc, cv, fk, gi)
+            if own_plane and s == 0:
+                x, y = ppos[0], ppos[1]
+                h, dhdx, dhdy = sample_patch_plane(cc, cv, *patch, x, y)
+                plane[gi] = plane_consts(cc, cv, gi, h, dhdx, dhdy, x, y)
             if track_anchors:
                 f, anchors[gi] = contact_force_from_plane(
                     cc, cv, gi, plane[gi], ppos, pvel, mu_env,
@@ -607,7 +644,10 @@ def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
         body_f = torch.stack([c if c is not None else zero3
                               for c in body_cols], dim=1)  # (3, nb, N)
 
-        tau = pd_tau(cc, cv, targets, q, qd)
+        if cc.torque_mode:
+            tau = torch.clamp(targets, -cv["effort"], cv["effort"])
+        else:
+            tau = pd_tau(cc, cv, targets, q, qd)
         tau_lim, extra = limit_spring(cc, cv, q, qd)
         tau_total = tau + tau_lim
         if has_damping:
@@ -625,12 +665,14 @@ def one_sim_dt(cc: ChainConsts, cv, lp_base, lp_lvl, mu_env, targets,
 def run_decimation_chain(cc: ChainConsts, lp_base, lp_lvl, mu_env,
                          targets, ph, pr0, pc0, pos, quat, vel, q, qd,
                          cv=None, anchors=None):
-    """The full policy-step physics: contact planes sampled once from the
-    entry state, then decimation x substeps of the step body, position
-    drive. Same contract as the CUDA kernel (chain_kernel.run_decimation_cuda).
+    """The full policy-step physics: decimation x substeps of the step
+    body; the contact planes are sampled once from the entry state
+    (``cc.plane_per_step``) or at the first substep of every sim dt;
+    position drive, or held torques with ``cc.torque_mode``. Same contract
+    as the CUDA kernel (chain_kernel.run_decimation).
 
-    anchors: packed (3, n_points, N) static-friction anchors (K4, needs
-    ``cc.warm_start``), or None (K1).
+    anchors: packed (3, n_points, N) static-friction anchors (needs
+    ``cc.warm_start``), or None.
 
     Returns (pos, quat, vel, q, qd, tau_last (L,K,N),
              body_f_last (3, n_bodies, N)[, anchors' (3, n_points, N)])."""
@@ -638,14 +680,16 @@ def run_decimation_chain(cc: ChainConsts, lp_base, lp_lvl, mu_env,
     if cv is None:
         cv = const_tensors(cc, pos.device, pos.dtype)
     state5 = (pos, quat, vel, q, qd)
-    fk0 = fk_chain(cc, cv, pos, quat, vel, q, qd)
-    plane = compute_plane(cc, cv, fk0, ph, pr0, pc0)
+    plane = None
+    if cc.plane_per_step:
+        fk0 = fk_chain(cc, cv, pos, quat, vel, q, qd)
+        plane = compute_plane(cc, cv, fk0, ph, pr0, pc0)
     tau_last = body_f_last = None
     track_anchors = cc.warm_start and anchors is not None
     groups = split_anchors(cc.cm, anchors) if track_anchors else None
     for _ in range(cc.decimation):
         out = one_sim_dt(cc, cv, lp_base, lp_lvl, mu_env, targets, state5,
-                         plane, anchors=groups)
+                         plane, anchors=groups, patch=(ph, pr0, pc0))
         if track_anchors:
             state5, tau_last, body_f_last, groups = out
         else:

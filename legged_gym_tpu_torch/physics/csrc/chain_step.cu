@@ -1,10 +1,20 @@
-// Fused chain physics: one policy step (decimation x substeps) of a
-// quadruped chain model (Go1 by default, other point-group sizes by -D) for
-// N envs. Kernel variant K1: position drive, contact plane sampled once per
-// policy step, no trimesh wall rule. Kernel variant K4 (warm = 1): K1 with
-// per-point static-friction anchors carried in and out, the tangential
-// contact force being the implicit anchored law
-// (legged_gym_tpu/physics/contact.py::anchored_tangential).
+// Fused chain physics: one policy step (decimation x substeps) of a chain
+// model (a floating base with K serial chains of L joints; Go1 by default,
+// other shapes by -D) for N envs, in the four configurations of the TPU
+// kernel it replaces:
+//   K1  position drive, contact plane sampled once per launch, no wall rule;
+//   K4  (FLAG_WARM) per-point static-friction anchors carried in and out,
+//       the tangential contact force being the implicit anchored law
+//       (legged_gym_tpu/physics/contact.py::anchored_tangential);
+//   K2  (FLAG_PLANE_PER_DT) the plane re-sampled at the first substep of
+//       every sim dt from that substep's kinematics, and / or (a wall
+//       threshold > 0 in the constant table) the trimesh wall rule: a query
+//       cell whose four corners spread more than the threshold collides as
+//       a flat floor at its min corner;
+//   K3  (FLAG_TORQUE) `targets` is a held torque clipped to the effort
+//       limit in place of the PD law; the caller passes decimation = 1 and
+//       the passive impedance in the table's J_IMP.
+// The flags combine (ANYmal runs K3 + K4 + the wall rule in one launch).
 //
 // Replaces the TPU kernel legged_gym_tpu/physics/pallas_step.py
 // (run_decimation_pallas, body `kernel`), whose body is
@@ -13,21 +23,31 @@
 // ::run_decimation_chain; chain_kernel.py binds this file and documents the
 // argument contract.
 //
-// Bound: about 3.4 KB move per env and launch (the 24x24 contact patch is
-// most of it), about 6 MB at 1800 envs: 2 us at 3.35 TB/s. The arithmetic
+// Bound: a launch must move about 2.6 KB per env on Go1 (1.1 KB of state,
+// link parameters and outputs, and of the 24x24 contact patch the four
+// corners of each of the 92 contact points' query cells), about 4.7 MB at
+// 1800 envs: 1.4 us at 3.35 TB/s. The arithmetic
 // is a long serial chain of 3x3 / 6x6 algebra per env (FK, contacts, ABA),
 // so the launch is bounded by latency, not by bytes or peak FLOP/s.
 // Design: one thread per env, state in registers / thread-local memory for
 // the whole decimation loop, the constant table read through the cache,
 // blocks of 32 threads so the ~57 warps at 1800 envs spread over the SMs.
-// Four cooperating threads per env (one per leg, shuffles for the base
+// K cooperating threads per env (one per chain, shuffles for the base
 // sums) is the next step for speed.
-// K4 adds 3 floats in and 3 out per contact point and env (504 floats per
-// env for aliengo's 84 points, +2 KB on 3.3 KB). The anchors never enter
-// thread-local memory: a substep reads each point's anchor from global
-// memory (the input at the first substep, the output buffer afterwards) and
-// writes the new one to the output buffer; the env axis is last, so a
-// warp's reads and writes coalesce and the rereads hit the cache.
+// The anchors (3 floats in and 3 out per contact point and env, 504 floats
+// per env for aliengo's 84 points) never enter thread-local memory: a
+// substep reads each point's anchor from global memory (the input at the
+// first substep of the launch, the output buffer afterwards) and writes the
+// new one to the output buffer; the env axis is last, so a warp's reads and
+// writes coalesce and the rereads hit the cache. Input and output are two
+// buffers; the SEA path's next launch reads what this one wrote.
+// WARM is a template parameter (it adds a global-memory round trip and a
+// second force law to every point: two instantiations keep K1 free of
+// both). The torque drive, the per-sim-dt plane and the wall rule are
+// run-time flags: each is one warp-uniform test per joint, per point and
+// substep, or per plane, they leave K1's arithmetic as it was when off, and
+// as template parameters they would multiply the instantiations (and the
+// compile time of every layout's library) by eight.
 //
 // The same file compiles as plain C++ (g++ -x c++) into a
 // host loop over envs with the identical per-env arithmetic; the CPU tests
@@ -43,14 +63,19 @@
 #endif
 
 // ---------------------------------------------------------------- layout
-// The model shape this kernel is built for: L levels x K chains, a base
-// point group and one group per level. The group sizes and the number of
-// report bodies are -D defines (defaults: Go1); chain_kernel.py builds one
-// library per layout, reads it back through chain_step_layout() and
-// refuses a model that does not match.
+// The model shape this kernel is built for: L_LVL levels x K_CH chains, a
+// base point group of S_BASE slots and one group per level, level l with
+// S_L<l> slots per chain; a size may be zero (A1 has no points on its hips,
+// Cassie only on its last level). The sizes and the number of report bodies
+// are -D defines (defaults: Go1; levels at and beyond L_LVL must be 0);
+// chain_kernel.py builds one library per layout, reads it back through
+// chain_step_layout() and refuses a model that does not match.
+#ifndef L_LVL
 #define L_LVL 3
+#endif
+#ifndef K_CH
 #define K_CH 4
-#define NG 4
+#endif
 #ifndef NB
 #define NB 17
 #endif
@@ -66,7 +91,29 @@
 #ifndef S_L2
 #define S_L2 9
 #endif
-#define NPTS (S_BASE + K_CH * (S_L0 + S_L1 + S_L2))   // Go1: 92
+#ifndef S_L3
+#define S_L3 0
+#endif
+#ifndef S_L4
+#define S_L4 0
+#endif
+#ifndef S_L5
+#define S_L5 0
+#endif
+#ifndef S_L6
+#define S_L6 0
+#endif
+#ifndef S_L7
+#define S_L7 0
+#endif
+#define MAX_LVL 8
+#define S_SUM (S_L0 + S_L1 + S_L2 + S_L3 + S_L4 + S_L5 + S_L6 + S_L7)
+static_assert(L_LVL >= 1 && L_LVL <= MAX_LVL, "L_LVL out of range");
+#define NG (1 + L_LVL)
+#define NPTS (S_BASE + K_CH * S_SUM)          // Go1: 92
+// thread-local arrays need at least one element
+#define NPTS1 (NPTS > 0 ? NPTS : 1)
+#define NB1 (NB > 0 ? NB : 1)
 
 // constant table: scalars, then one record per joint (l, k), then one per
 // contact point (base group slots, then level groups slot-major, chain-minor)
@@ -100,6 +147,12 @@
 #define C_ANC_VMAX 19
 #define C_ANC_STALE2 20
 #define C_ANC_REL 21
+#define C_WALL 22
+
+// run-time flags of chain_step_run
+#define FLAG_WARM 1
+#define FLAG_TORQUE 2
+#define FLAG_PLANE_PER_DT 4
 
 // joint record fields
 #define J_RJA 0
@@ -128,15 +181,92 @@
 #define P_ACT 9
 #define P_BODY 10
 
-// slots per chain of group g, and the first point index of group g
+// slots per chain of group g (0: the base group, 1 + l: level l), and the
+// first point index of group g. The chains stop at the model's last level:
+// compared against all MAX_LVL levels, a Go1 launch took measurably longer
+// (scripts/kernel_numerics.py times a launch).
+#define GB1 S_BASE
+#define GB2 (GB1 + K_CH * S_L0)
+#define GB3 (GB2 + K_CH * S_L1)
+#define GB4 (GB3 + K_CH * S_L2)
+#define GB5 (GB4 + K_CH * S_L3)
+#define GB6 (GB5 + K_CH * S_L4)
+#define GB7 (GB6 + K_CH * S_L5)
+#define GB8 (GB7 + K_CH * S_L6)
+#if L_LVL == 1
+#define GS_LAST S_L0
+#define GB_LAST GB1
+#elif L_LVL == 2
+#define GS_LAST S_L1
+#define GB_LAST GB2
+#elif L_LVL == 3
+#define GS_LAST S_L2
+#define GB_LAST GB3
+#elif L_LVL == 4
+#define GS_LAST S_L3
+#define GB_LAST GB4
+#elif L_LVL == 5
+#define GS_LAST S_L4
+#define GB_LAST GB5
+#elif L_LVL == 6
+#define GS_LAST S_L5
+#define GB_LAST GB6
+#elif L_LVL == 7
+#define GS_LAST S_L6
+#define GB_LAST GB7
+#else
+#define GS_LAST S_L7
+#define GB_LAST GB8
+#endif
 HD int group_size(int g) {
-  return g == 0 ? S_BASE : g == 1 ? S_L0 : g == 2 ? S_L1 : S_L2;
+  return g == 0 ? S_BASE
+#if L_LVL > 1
+       : g == 1 ? S_L0
+#endif
+#if L_LVL > 2
+       : g == 2 ? S_L1
+#endif
+#if L_LVL > 3
+       : g == 3 ? S_L2
+#endif
+#if L_LVL > 4
+       : g == 4 ? S_L3
+#endif
+#if L_LVL > 5
+       : g == 5 ? S_L4
+#endif
+#if L_LVL > 6
+       : g == 6 ? S_L5
+#endif
+#if L_LVL > 7
+       : g == 7 ? S_L6
+#endif
+       : GS_LAST;
 }
 HD int group_base(int g) {
   return g == 0 ? 0
-       : g == 1 ? S_BASE
-       : g == 2 ? S_BASE + K_CH * S_L0
-                : S_BASE + K_CH * (S_L0 + S_L1);
+#if L_LVL > 1
+       : g == 1 ? GB1
+#endif
+#if L_LVL > 2
+       : g == 2 ? GB2
+#endif
+#if L_LVL > 3
+       : g == 3 ? GB3
+#endif
+#if L_LVL > 4
+       : g == 4 ? GB4
+#endif
+#if L_LVL > 5
+       : g == 5 ? GB5
+#endif
+#if L_LVL > 6
+       : g == 6 ? GB6
+#endif
+#if L_LVL > 7
+       : g == 7 ? GB7
+#endif
+       : GB_LAST;
 }
 
 // ------------------------------------------------------------ small algebra
@@ -345,13 +475,16 @@ struct Args {
   int S;                  // contact patch size
   int decimation;
   int substeps;
+  int torque;             // FLAG_TORQUE: targets are held torques
+  int plane_per_dt;       // FLAG_PLANE_PER_DT: plane sampled every sim dt
 };
 
 // plane record per point: c0, dhdx, dhdy, nx, ny, nz, gain
 #define PL 7
 
-// bilinear height + gradient against the env's patch, then the plane
-// constants with the direction-aware apparent mass
+// bilinear height + gradient against the env's patch (with the trimesh wall
+// rule when the table's wall threshold is > 0), then the plane constants
+// with the direction-aware apparent mass
 HD void make_plane(const Args& A, int e, const float* P, float x, float y,
                    float r0f, float c0f, float* pl) {
   const float* C = A.cst;
@@ -375,6 +508,15 @@ HD void make_plane(const Args& A, int e, const float* P, float x, float y,
   float h = txp0 * (1.f - ty) + txp1 * ty;
   float dhdy = txp0 * -inv_hs + txp1 * inv_hs;
   float dhdx = gxp0 * (1.f - ty) + gxp1 * ty;
+  const float wall = C[C_WALL];
+  if (wall > 0.f) {
+    // the query cell is clamped to S - 2, so its four corners are the
+    // cell's own; strictly below the bilinear height only
+    float m4 = fminf(fminf(h00, h10), fminf(h01, h11));
+    float big4 = fmaxf(fmaxf(h00, h10), fmaxf(h01, h11));
+    float mq = (big4 - m4 > wall) ? m4 : 1e9f;
+    if (mq < h) { h = mq; dhdx = 0.f; dhdy = 0.f; }
+  }
   float inv_norm = 1.f / sqrtf(1.f + dhdx * dhdx + dhdy * dhdy);
   float nz = inv_norm;
   float nz2 = nz * nz;
@@ -535,9 +677,10 @@ HD void chain_env(const Args& A, int e) {
   float lpb[10];
   for (int i = 0; i < 10; ++i) lpb[i] = A.lp_base[i * n + e];
 
-  // ---- contact planes, sampled once from the entry state ----
-  float plane[NPTS][PL];
-  {
+  // ---- contact planes, sampled once from the entry state (or, with
+  // plane_per_dt, in the loop at the first substep of every sim dt) ----
+  float plane[NPTS1][PL];
+  if (!A.plane_per_dt) {
     M3 R0 = quat_to_matrix(qt);
     V3 p0 = vload(pos);
     for (int s = 0; s < S_BASE; ++s) {
@@ -566,10 +709,11 @@ HD void chain_env(const Args& A, int e) {
     }
   }
 
-  float bf[NB][3];
+  float bf[NB1][3];
   const int n_sub = A.decimation * A.substeps;
   for (int it = 0; it < n_sub; ++it) {
     for (int b = 0; b < NB; ++b) bf[b][0] = bf[b][1] = bf[b][2] = 0.f;
+    const bool resample = A.plane_per_dt && (it % A.substeps == 0);
     // anchors: the caller's at the first substep, then the ones the
     // previous substep wrote
     const float* anc_src = it == 0 ? A.anc : A.anc_o;
@@ -585,6 +729,7 @@ HD void chain_env(const Args& A, int e) {
       V3 off = vload(P + P_OFF);
       V3 pp = vadd(p0, mv(R0, off));
       V3 pv = mv(R0, vadd(v0, vcross(w0, off)));
+      if (resample) make_plane(A, e, P, pp.x, pp.y, r0f, c0f, plane[s]);
       V3 f = point_force<WARM>(A, anc_src, e, s, P, plane[s], pp, pv,
                                mu_env);
       f_base = vadd(f_base, f);
@@ -629,6 +774,8 @@ HD void chain_env(const Args& A, int e) {
           V3 off = vload(P + P_OFF);
           V3 cp = vadd(pw[l], mv(Rw[l], off));
           V3 cv = mv(Rw[l], vadd(vl[l], vcross(wl[l], off)));
+          if (resample)
+            make_plane(A, e, P, cp.x, cp.y, r0f, c0f, plane[pidx]);
           V3 f = point_force<WARM>(A, anc_src, e, pidx, P, plane[pidx], cp,
                                    cv, mu_env);
           fl = vadd(fl, f);
@@ -639,10 +786,12 @@ HD void chain_env(const Args& A, int e) {
           }
         }
 
-        // joint torque: PD + limit spring (+ URDF damping)
+        // joint torque: PD (or the held torque) + limit spring (+ URDF
+        // damping)
         float qv = q[l][k], qdv = qd[l][k];
-        float tau = clampf(J[J_KP] * (tgt[l][k] - qv) - J[J_KD] * qdv,
-                           -J[J_EFF], J[J_EFF]);
+        float tau_raw = A.torque
+            ? tgt[l][k] : J[J_KP] * (tgt[l][k] - qv) - J[J_KD] * qdv;
+        float tau = clampf(tau_raw, -J[J_EFF], J[J_EFF]);
         tau_pd[l][k] = tau;
         float over = fmaxf(qv - J[J_HI], 0.f);
         float under = fmaxf(J[J_LO] - qv, 0.f);
@@ -802,16 +951,18 @@ chain_step_kernel(Args a) {
 // layout of the model this file is built for:
 // [L, K, NG, S_0..S_{NG-1}, NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS]
 EXPORT int chain_step_layout(int* out, int cap) {
-  int v[] = {L_LVL, K_CH, NG, S_BASE, S_L0, S_L1, S_L2, NB, N_CONST,
-             N_SCALAR, JSTRIDE, PSTRIDE, NPTS};
-  int m = (int)(sizeof(v) / sizeof(v[0]));
+  const int rest[] = {NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS};
+  int v[3 + NG + 6] = {L_LVL, K_CH, NG};
+  for (int g = 0; g < NG; ++g) v[3 + g] = group_size(g);
+  for (int i = 0; i < 6; ++i) v[3 + NG + i] = rest[i];
+  const int m = 3 + NG + 6;
   for (int i = 0; i < m && i < cap; ++i) out[i] = v[i];
   return m;
 }
 
-// One policy step for n envs. warm != 0 selects K4: anc / anc_o are the
-// (3, NPTS, n) anchors in and out (they may be the same buffer); with
-// warm == 0 (K1) they are not touched. On the card: launches on `stream`
+// One policy step for n envs. flags: FLAG_WARM (anc / anc_o are the
+// (3, NPTS, n) anchors in and out, two buffers; without it they are not
+// touched), FLAG_TORQUE, FLAG_PLANE_PER_DT. On the card: launches on `stream`
 // and returns cudaGetLastError() (0 when the launch was accepted). In the
 // host build: runs the envs in a loop and returns 0.
 EXPORT int chain_step_run(
@@ -821,7 +972,8 @@ EXPORT int chain_step_run(
     const float* qd, const float* cst, float* pos_o, float* quat_o,
     float* vel_o, float* q_o, float* qd_o, float* tau_o, float* body_f_o,
     const float* anc, float* anc_o, int n, int S, int decimation,
-    int substeps, int warm, void* stream) {
+    int substeps, int flags, void* stream) {
+  const int warm = flags & FLAG_WARM;
   Args a;
   a.lp_base = lp_base; a.lp_lvl = lp_lvl; a.mu = mu; a.targets = targets;
   a.ph = ph; a.r0 = r0; a.c0 = c0; a.pos = pos; a.quat = quat; a.vel = vel;
@@ -829,6 +981,8 @@ EXPORT int chain_step_run(
   a.vel_o = vel_o; a.q_o = q_o; a.qd_o = qd_o; a.tau_o = tau_o;
   a.body_f_o = body_f_o; a.n = n; a.S = S; a.decimation = decimation;
   a.substeps = substeps;
+  a.torque = (flags & FLAG_TORQUE) ? 1 : 0;
+  a.plane_per_dt = (flags & FLAG_PLANE_PER_DT) ? 1 : 0;
   a.anc = warm ? anc : nullptr;
   a.anc_o = warm ? anc_o : nullptr;
   if (n <= 0) return 0;

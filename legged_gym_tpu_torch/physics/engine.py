@@ -105,16 +105,24 @@ class Engine:
                         * (self.kd + self.dt_inner * self.kp
                            + np.asarray(model.dof_damping))
                         + sim.armature_floor)[:, None]
+        # the same without the PD servo: what a torque-driven joint sees
+        self._imp_passive = (self.dt_inner * np.asarray(model.dof_damping)
+                             + sim.armature_floor)[:, None]
 
-    def calibrate_contact_mass(self, q0, inertia_params_fn, safety=0.7):
+    def calibrate_contact_mass(self, q0, inertia_params_fn, safety=0.7,
+                               drive="pd"):
         """Replace the analytic apparent-mass lower bound with a numeric
         probe of the true step-response mass at every collision point:
         one engine substep (PD holding the pose, no contact, no gravity)
         per point and axis with a unit world force at that point;
         m_app = F * dt / dv. Probed at poses q0 * s for s in
         {1.0, 0.7, 1.3} (clamped to the hard limits), keeping the minimum.
-        The probe includes the implicit PD servo impedance (position drive,
-        the only drive the port has).
+        drive: which joint impedance the probe includes: "pd" for
+        position-drive robots (the implicit servo dt*(kd+dt*kp) dominates
+        the response) or "torque" for robots driven by held torques (the
+        SEA net): those run with the passive impedance only, and probing
+        with the servo overestimates the apparent mass, so the stopping
+        impulse over-corrects and the stance micro-bounces.
         q0: (nq,) default joint positions.
         inertia_params_fn: n -> (nl, 10, n) nominal link inertias (CPU).
         """
@@ -124,7 +132,11 @@ class Engine:
             return
         dtype = torch.float32
         n = 3 * P            # env (3k + a): unit force along axis a at point k
-        implicit_d = torch.as_tensor(self._imp_pd, dtype=dtype)
+        if drive not in ("pd", "torque"):
+            raise ValueError(f"drive {drive!r}: 'pd' or 'torque'")
+        implicit_d = torch.as_tensor(
+            self._imp_pd if drive == "pd" else self._imp_passive,
+            dtype=dtype)
         pt = torch.eye(P, dtype=dtype).repeat(1, 3)              # (P, 3P)
         ax = torch.eye(3, dtype=dtype).repeat_interleave(P, dim=1)  # (3, 3P)
         f_pts = ax[:, None, :] * pt[None]                        # (3, P, 3P)

@@ -1,8 +1,9 @@
 """Task registry: name -> config factory; env + runner construction (the
 analog of the reference's ``task_registry``, task_registry.py:30-170):
 ``make_env`` builds the environment, ``make_runner`` the PPO runner with
-run-dir / resume handling. The port registers go1 and aliengo, the robots
-of its main paths."""
+run-dir / resume handling. Registration order matches the reference's
+envs/__init__.py:52-59. ``anymal_c_flat`` (self-collision) is registered
+and raises NotImplementedError when built: it needs the general engine."""
 from __future__ import annotations
 
 import os
@@ -90,5 +91,11 @@ def make_runner(env, name=None, args=None, train_cfg=None,
     return runner, train_cfg
 
 
+register("anymal_c_rough", robots.anymal_c_rough)
+register("anymal_c_flat", robots.anymal_c_flat)
+register("anymal_b", robots.anymal_b)
+register("a1", robots.a1)
+register("cassie", robots.cassie)
+register("a1_src", robots.a1_src)
 register("go1", robots.go1)
 register("aliengo", robots.aliengo)

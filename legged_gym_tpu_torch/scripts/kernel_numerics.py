@@ -1,17 +1,23 @@
 """The fused physics kernel against its plain PyTorch version, env by env,
 at the main paths' shapes on the card: K1 for go1 on rough terrain at 1800
-envs, K4 (friction anchors) for aliengo on the plane at 4096 envs.
+envs, K4 (friction anchors) for aliengo on the plane, K2 (trimesh wall
+rule) for cassie and K3 + K4 + wall rule (one SEA segment of held torques)
+for anymal_c_rough, each at its own 4096 envs.
 
-    python -m legged_gym_tpu_torch.scripts.kernel_numerics [--task aliengo]
+    python -m legged_gym_tpu_torch.scripts.kernel_numerics \
+        [--task aliengo|cassie|anymal_c_rough]
 
 For a fresh reset, the state after the reset step and a settled state
 (30 zero-action steps), it prints per output the max / 99th percentile /
 median over envs of |kernel - plain| and the envs over tolerance, for the
 kernel built with and without fused multiply-add contraction, and for the
-plain version run on the CPU (the spread of the reference itself). Also
-holds the helpers that chip_smoke.py uses.
+plain version run on the CPU (the spread of the reference itself). With
+``--seeds N`` it instead sweeps env seeds 0 .. N-1 on the settled state
+(seed_sweep). Also holds the helpers that chip_smoke.py uses.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,6 +39,24 @@ BODY_F_ATOL = 0.5
 # the card; tau = kp (target - q) - kd_eff qd carries it (kd_eff ~2), so
 # settled states are held at 2e-2 on qd and tau
 SETTLED_ATOL = {"qd": 2e-2, "tau": 2e-2}
+# a contact that switches state one substep apart (depth > 0, v_n < 5 cm/s
+# are thresholds) changes that substep's force by the whole contact force,
+# so among 4096 settled envs of a heavy robot on stiff contacts (anymal:
+# 52 kg, 4 substeps per sim dt; cassie mid-fall on two toes) float32
+# rounding in another order moves a few envs by far more than rounding.
+# The plain version does that to itself: run on the CPU and on the card
+# for the same inputs it differs in 1-3 cassie envs and 22-33 anymal envs
+# (body_f up to 324 N, q up to 1.1e-2), and the kernel differs from the
+# card's run in 1-2 and 19-23 envs, from the CPU's run in 0-2 and 3-13
+# (``--seeds 4`` of this script on an NVIDIA H100 80GB HBM3, 700 W, env
+# seeds 0-3 of cassie and anymal_c_rough). An env where rounding flips a
+# contact is one where the two plain runs disagree, and there the kernel
+# follows one of them: over those 8 x 4096 envs it was over tolerance
+# against both plain runs in 1 env (none on 7 of the 8 seeds). So on those
+# paths a settled env passes when every output is within tolerance of the
+# plain version on the card or of the plain version on the CPU, and at
+# most this share of the envs (2 of 4096) may fail both
+SWITCH_ENVS_SHARE = 0.0005
 
 
 def rough_cfg(n=1800):
@@ -47,10 +71,19 @@ def rough_cfg(n=1800):
     return cfg
 
 
-def kernel_args(env, state):
+def step_consts(env):
+    """The ChainConsts of one kernel launch on the env's path: the engine's
+    own, or its torque-drive twin (one sim dt) where the SEA net drives."""
+    ce = env.chain_engine
+    return ce.cc_sea if env._sea is not None else ce.cc
+
+
+def kernel_args(env, state, sea_seed=0):
     """Kernel arguments for ``state``: default-pose targets and the cached
     contact window (the center crop of the state's terrain window; on a
-    plane the engine's zero window)."""
+    plane the engine's zero window). On the SEA path the targets are held
+    torques of the net's order, normal with 40 N*m standard deviation from
+    ``sea_seed`` (some beyond the effort limit, so the clip is exercised)."""
     patch = None
     if env.grid is not None:
         lo = (env.patch_cache_S - env.contact_patch_S) // 2
@@ -58,6 +91,10 @@ def kernel_args(env, state):
         patch = (state.patch_T[lo:hi, lo:hi].contiguous(),
                  state.patch_r0 + lo, state.patch_c0 + lo)
     targets = env._dflt.expand(env.num_dof, state.n)
+    if env._sea is not None:
+        gen = torch.Generator(device=env.device).manual_seed(sea_seed)
+        targets = 40.0 * torch.randn((env.num_dof, state.n), generator=gen,
+                                     device=env.device, dtype=env.dtype)
     return env.chain_engine.level_args(state.physics, state.link_params,
                                        state.friction, targets, patch)
 
@@ -101,6 +138,53 @@ def over_tolerance(errs, tol):
     return torch.nonzero(bad).flatten().tolist()
 
 
+def contact_envs(out):
+    """(N,) bool: envs whose contact sensor reads more than 1 N upward in
+    ``out`` (the 7 outputs of a step)."""
+    return out[6][2].sum(dim=0) > 1.0
+
+
+def wall_rule_envs(cc, cv, args):
+    """(N,) bool: envs where, at the entry state of ``args``, the trimesh
+    wall rule changes a contact: some contact point lies over a query cell
+    whose corners spread more than ``cc.wall_thresh`` and below the
+    bilinear surface there, so it touches with the rule off and touches
+    less, or not at all, against the rule's flat floor."""
+    ph, r0, c0 = args[4:7]
+    fk = chain_step.fk_chain(cc, cv, *args[7:12])
+    no_wall = dataclasses.replace(cc, wall_thresh=0.0)
+    hit = torch.zeros(ph.shape[-1], dtype=torch.bool, device=ph.device)
+    for gi in range(len(cc.cm.groups)):
+        p, _ = chain_step.contact_points_group(cc, cv, fk, gi)
+        h, _, _ = chain_step.sample_patch_plane(cc, cv, ph, r0, c0, p[0],
+                                                p[1])
+        h0, _, _ = chain_step.sample_patch_plane(no_wall, cv, ph, r0, c0,
+                                                 p[0], p[1])
+        hit |= ((h < h0) & (p[2] < h0)).flatten(0, -2).any(dim=0)
+    return hit
+
+
+def plain_on_cpu(cc, args, anchors):
+    """The plain version's outputs for card inputs, computed on the CPU:
+    beside its outputs on the card they show what float32 rounding in
+    another order alone does to this state."""
+    return chain_step.run_decimation_chain(
+        cc, *[a.cpu() for a in args],
+        anchors=None if anchors is None else anchors.cpu())
+
+
+def envs_over(ref, out, settled, ref_cpu=None):
+    """Envs where some output of ``out`` is over its tolerance against
+    ``ref`` and, when ``ref_cpu`` (plain_on_cpu) is given, against that
+    too."""
+    tol = tolerances(settled)
+    bad = set(over_tolerance(per_env_errors(ref, out), tol))
+    if ref_cpu is not None and bad:
+        out_cpu = [o.cpu() for o in out[:7]]
+        bad &= set(over_tolerance(per_env_errors(ref_cpu, out_cpu), tol))
+    return sorted(bad)
+
+
 def cuda_ms(fn, reps, warmup=2):
     """Mean ms per call of ``fn`` on the card, by CUDA events."""
     for _ in range(warmup):
@@ -114,6 +198,19 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_bytes(cc, tensors):
+    """Bytes one launch must move: each tensor of ``tensors`` (inputs
+    without the contact patch, constant table, outputs, anchors both ways)
+    once, and of each env's contact patch only the cells a launch can
+    read: the four corners of the query cell of each contact point, once
+    per plane sampling (one, or one per sim dt)."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    samplings = 1 if cc.plane_per_step else cc.decimation
+    cells = min(cc.patch_S ** 2, 4 * chain_step.n_points(cc.cm) * samplings)
+    n = tensors[0].shape[-1]
+    return n_bytes + 4 * cells * n
 
 
 def count_flops(fn):
@@ -154,18 +251,73 @@ def _report(tag, ref, out, settled):
           f"max/p99/median {stats}", flush=True)
 
 
+def seed_sweep(task, seeds):
+    """For each env seed: the settled state's envs over tolerance and the
+    largest errors of the kernel against the plain version on the card
+    and on the CPU, beside the plain version against itself, with the envs
+    in contact and the envs where the wall rule changes a contact.
+    SWITCH_ENVS_SHARE is set from this."""
+    for seed in seeds:
+        env, _ = registry.make_env(task, seed=seed, device="cuda")
+        cc = step_consts(env)
+        cv = chain_step.const_tensors(cc, "cuda")
+        state = env.initial_state()
+        zeros = torch.zeros((env.num_envs, env.num_actions), device="cuda")
+        for _ in range(30):
+            state, _ = env.step(state, zeros)
+        args = kernel_args(env, state, sea_seed=seed)
+        anchors = state.contact_ws
+        ref = chain_step.run_decimation_chain(cc, *args, cv=cv,
+                                              anchors=anchors)
+        out = chain_kernel.run_decimation(cc, *args, anchors=anchors)
+        torch.cuda.synchronize()
+        tol = tolerances(settled=True)
+        wall = wall_rule_envs(cc, cv, args) if cc.wall_thresh > 0 else None
+        print(f"[{task} seed {seed}] {int(contact_envs(ref).sum())} of "
+              f"{env.num_envs} envs in contact, "
+              f"{0 if wall is None else int(wall.sum())} where the wall "
+              f"rule changes a contact", flush=True)
+        ref_cpu = plain_on_cpu(cc, args, anchors)
+        out_cpu = [o.cpu() for o in out]
+        pairs = (("kernel vs plain", per_env_errors(ref, out)),
+                 ("kernel vs plain on the CPU",
+                  per_env_errors(ref_cpu, out_cpu)),
+                 ("plain CPU vs card",
+                  per_env_errors(ref_cpu, [r.cpu() for r in ref])))
+        print(f"[{task} seed {seed}] envs where the kernel is over "
+              f"tolerance against both plain runs: "
+              f"{envs_over(ref, out, True, ref_cpu)}")
+        for tag, errs in pairs:
+            bad = over_tolerance(errs, tol)
+            n_wall = 0 if wall is None else int(wall.cpu()[bad].sum())
+            print(f"[{task} seed {seed}] {tag}: {len(bad)} envs over "
+                  f"tolerance ({n_wall} of them wall-rule envs); max "
+                  + ", ".join(f"{k} {float(v.max()):.3e}"
+                              for k, v in errs.items()), flush=True)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--task", choices=("go1", "aliengo"), default="go1",
-                    help="go1: K1 on rough terrain at 1800 envs; aliengo: "
-                         "K4 (friction anchors) on the plane at 4096 envs")
-    task = ap.parse_args(argv).task
+    ap.add_argument("--task", default="go1",
+                    help="go1: K1 on rough terrain at 1800 envs; any other "
+                         "registered task as it is (aliengo: K4; cassie: "
+                         "K2; anymal_c_rough: K3 + K4 + wall rule)")
+    ap.add_argument("--seeds", type=int, default=0,
+                    help="instead: the settled-state comparison for env "
+                         "seeds 0 .. SEEDS-1 (seed_sweep)")
+    ns = ap.parse_args(argv)
+    task = ns.task
+    if ns.seeds:
+        return seed_sweep(task, range(ns.seeds))
     if task == "go1":
         env, _ = registry.make_env(cfg=rough_cfg(), device="cuda")
     else:
-        env, _ = registry.make_env("aliengo", device="cuda")
-    cc = env.chain_engine.cc
+        env, _ = registry.make_env(task, device="cuda")
+    cc = step_consts(env)
+    print(f"{task}: kernel variant "
+          f"{chain_step.variant(cc, env._warm_start)}, layout "
+          f"{chain_kernel.model_layout(cc.cm)}, {env.num_envs} envs")
     layout = chain_kernel.model_layout(cc.cm)
     cv = chain_step.const_tensors(cc, "cuda")
     table = torch.as_tensor(chain_kernel.const_table(cc), device="cuda")
@@ -186,9 +338,7 @@ def main(argv=None):
         settled = label == "settled"
         ref = chain_step.run_decimation_chain(cc, *args, cv=cv,
                                               anchors=anchors)
-        ref_cpu = chain_step.run_decimation_chain(
-            cc, *[a.cpu() for a in args],
-            anchors=None if anchors is None else anchors.cpu())
+        ref_cpu = plain_on_cpu(cc, args, anchors)
         _report(f"[{label}] plain on CPU vs card", [r.cpu() for r in ref],
                 ref_cpu, settled)
         for name, lib in libs.items():

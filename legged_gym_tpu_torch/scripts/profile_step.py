@@ -4,15 +4,16 @@ window of steady steps.
 
     python -m legged_gym_tpu_torch.scripts.profile_step [--steps 20]
     python -m legged_gym_tpu_torch.scripts.profile_step --train \
-        [--task go1|aliengo] [--iterations 2]
+        [--task go1|aliengo|cassie|anymal_c_rough|...] [--iterations 2]
 
 Prints the wall time per step, the device busy time per step (sum of
 kernel times), the idle share, the number of kernel launches per step and
 the top kernels by device time. Writes a Chrome trace under chiprun_out/.
 With ``--train`` the unit is one PPO iteration (24-step rollout, GAE, 20
 minibatch steps) through ``registry.make_runner``: go1 on rough terrain at
-1800 envs, or aliengo at its own 4096; the rollout / update split comes
-from a second, unprofiled window; no trace is written unless asked.
+1800 envs, or any other task as registered (aliengo, cassie, anymal_c_rough,
+... at their own 4096 envs); the rollout / update split comes from a second,
+unprofiled window; no trace is written unless asked.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ def main(argv=None):
                          "chiprun_out/profile_step.json, none with --train)")
     ap.add_argument("--train", action="store_true",
                     help="profile PPO iterations instead of env steps")
-    ap.add_argument("--task", choices=("go1", "aliengo"), default="go1")
+    ap.add_argument("--task", default="go1",
+                    help="go1 (rough variant at --num_envs) or any "
+                         "registered task as it is")
     ap.add_argument("--iterations", type=int, default=2)
     args = ap.parse_args(argv)
     if args.train:
@@ -99,7 +102,7 @@ def profile_train(args):
         env, _ = registry.make_env(cfg=rough_cfg(args.num_envs),
                                    device="cuda")
     else:
-        env, _ = registry.make_env("aliengo", device="cuda")
+        env, _ = registry.make_env(args.task, device="cuda")
     runner, tcfg = registry.make_runner(env, name=args.task, log_root=None)
     horizon = tcfg.runner.num_steps_per_env
     runner.learn(2, init_at_random_ep_len=True)            # warm up

@@ -46,12 +46,14 @@ def sample_min3(grid, x, y):
 
 
 def sample_bilinear(grid, x, y):
-    """Returns (h, dh/dx, dh/dy) at world (x, y); flat plane if grid None."""
+    """Returns (h, dh/dx, dh/dy) at world (x, y); flat plane if grid None.
+
+    When ``grid.wall_thresh > 0`` (trimesh) cells whose corner spread
+    exceeds it collide as a flat floor at the min corner, the vertical-face
+    rule (TerrainGrid.wall_thresh): stairs are steps, not ramps."""
     if grid is None:
         z = torch.zeros_like(x)
         return z, z, z
-    if grid.wall_thresh > 0.0:
-        raise NotImplementedError("the trimesh wall rule is not ported")
     ix, iy, tx, ty = _cell_coords(grid, x, y)
     h00 = _gather(grid, ix, iy)
     h10 = _gather(grid, ix + 1, iy)
@@ -63,6 +65,14 @@ def sample_bilinear(grid, x, y):
     inv_hs = 1.0 / grid.horizontal_scale
     dhdx = ((h10 - h00) * (1 - ty) + (h11 - h01) * ty) * inv_hs
     dhdy = ((h01 - h00) * (1 - tx) + (h11 - h10) * tx) * inv_hs
+    if grid.wall_thresh > 0.0:
+        m4 = torch.minimum(torch.minimum(h00, h10), torch.minimum(h01, h11))
+        big4 = torch.maximum(torch.maximum(h00, h10),
+                             torch.maximum(h01, h11))
+        steep = (big4 - m4) > grid.wall_thresh
+        h = torch.where(steep, m4, h)
+        dhdx = torch.where(steep, 0.0, dhdx)
+        dhdy = torch.where(steep, 0.0, dhdy)
     return h, dhdx, dhdy
 
 

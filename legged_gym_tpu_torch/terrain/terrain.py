@@ -15,6 +15,7 @@ height scanner.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,7 +32,11 @@ class TerrainGrid:
     horizontal_scale: float
     vertical_scale: float
     border_size: float
-    # trimesh vertical-face rule (> 0); heightfield terrain keeps 0
+    # trimesh vertical-face collision rule: cells whose corner spread
+    # exceeds this (meters; slope_treshold * horizontal_scale) collide as
+    # a flat floor at the min corner with a vertical wall at the gridline,
+    # the sampler-level equivalent of the reference's slope-corrected
+    # trimesh (utils/terrain.py:69-73). 0 = plain bilinear (heightfield)
     wall_thresh: float = 0.0
 
 
@@ -47,10 +52,6 @@ class Terrain:
         self.rng = np.random.default_rng(seed)
         if self.type in ["none", "plane"]:
             return
-        if self.type == "trimesh":
-            raise NotImplementedError(
-                "trimesh terrain (kernel variant K2) is not ported")
-
         nr, nc = cfg.num_rows, cfg.num_cols
         hs = cfg.horizontal_scale
         self.env_length = cfg.terrain_length   # consumed by the terrain
@@ -68,6 +69,25 @@ class Terrain:
         self.height_field_raw = self._assemble(stack)
         self.env_origins = self._origins(stack)
         self.heightsamples = self.height_field_raw
+
+    @functools.cached_property
+    def _mesh(self):
+        """(vertices, triangles) of a trimesh terrain, built when first
+        read: the simulation collides against ``grid()`` and its wall rule,
+        only a viewer needs the mesh."""
+        if self.type != "trimesh":
+            raise AttributeError(f"a {self.type} terrain has no mesh")
+        return convert_heightfield_to_trimesh(
+            self.height_field_raw, self.cfg.horizontal_scale,
+            self.cfg.vertical_scale, self.cfg.slope_treshold)
+
+    @property
+    def vertices(self):
+        return self._mesh[0]
+
+    @property
+    def triangles(self):
+        return self._mesh[1]
 
     # ------------------------------------------------------------- plan
     def _plan(self, nr, nc):
@@ -158,8 +178,50 @@ class Terrain:
     # ----------------------------------------------------------- device
     def grid(self, device="cuda") -> TerrainGrid:
         h = self.height_field_raw.astype(np.float32) * self.cfg.vertical_scale
+        wall = 0.0
+        if self.type == "trimesh":
+            wall = self.cfg.slope_treshold * self.cfg.horizontal_scale
         return TerrainGrid(height=torch.as_tensor(h, device=device),
                            raw=self.height_field_raw,
                            horizontal_scale=self.cfg.horizontal_scale,
                            vertical_scale=self.cfg.vertical_scale,
-                           border_size=self.cfg.border_size)
+                           border_size=self.cfg.border_size,
+                           wall_thresh=wall)
+
+
+def convert_heightfield_to_trimesh(hf, horizontal_scale, vertical_scale,
+                                   slope_threshold=0.75):
+    """Heightfield -> (vertices, triangles) with steep slopes corrected to
+    vertical faces (API parity with isaacgym.terrain_utils, for export /
+    rendering). The collision path applies the equivalent correction at
+    the sampler level via ``TerrainGrid.wall_thresh``."""
+    rows, cols = hf.shape
+    y = np.linspace(0, (cols - 1) * horizontal_scale, cols)
+    x = np.linspace(0, (rows - 1) * horizontal_scale, rows)
+    yy, xx = np.meshgrid(y, x)
+    z = hf.astype(np.float32) * vertical_scale
+
+    if slope_threshold is not None:
+        # shift vertices at steep slopes horizontally so faces go vertical
+        st = slope_threshold * horizontal_scale / vertical_scale
+        move_x = np.zeros((rows, cols))
+        move_y = np.zeros((rows, cols))
+        move_x[: rows - 1] += hf[1:] - hf[: rows - 1] > st
+        move_x[1:] -= hf[: rows - 1] - hf[1:] > st
+        move_y[:, : cols - 1] += hf[:, 1:] - hf[:, : cols - 1] > st
+        move_y[:, 1:] -= hf[:, : cols - 1] - hf[:, 1:] > st
+        xx += move_x * horizontal_scale
+        yy += move_y * horizontal_scale
+
+    vertices = np.stack([xx.ravel(), yy.ravel(), z.ravel()],
+                        axis=1).astype(np.float32)
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    a = idx[:-1, :-1].ravel()
+    b = idx[:-1, 1:].ravel()
+    c = idx[1:, :-1].ravel()
+    d = idx[1:, 1:].ravel()
+    tris = np.concatenate([
+        np.stack([a, c, d], axis=1),
+        np.stack([a, d, b], axis=1),
+    ]).astype(np.uint32)
+    return vertices, tris

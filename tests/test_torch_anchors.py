@@ -149,7 +149,7 @@ def test_aliengo_chain_constants(envs):
     assert (cm.L, cm.K, cm.n_bodies) == (3, 4, 17)
     assert [g.offs.shape[0] for g in cm.groups] == [8, 2, 8, 9]
     assert chain_step.n_points(cm) == 84
-    assert chain_kernel.model_layout(cm) == ((8, 2, 8, 9), 17)
+    assert chain_kernel.model_layout(cm) == (3, 4, 8, (2, 8, 9), 17)
     for f in ("dt_inner", "substeps", "decimation", "gravity", "mu_terrain",
               "slip_velocity", "baumgarte", "patch_S", "plane_per_step",
               "warm_start", "anchor_beta", "anchor_vmax", "anchor_stale2",
@@ -171,13 +171,34 @@ def test_aliengo_chain_constants(envs):
 
 
 def test_variant_check_accepts_k1_k4_refuses_k2_k3(envs):
-    cc = envs[1].chain_engine.cc
+    """Named for what it once held, a refusal of K2 / K3; every variant is
+    ported now, so the check accepts them all (K4 combined with K2 and K3
+    included), names the variant each selects, and the wrapper runs it with
+    anchors in and out. Only a configuration that makes no sense is
+    refused. (tests/test_torch_trimesh.py and test_torch_sea.py hold these
+    combinations against the JAX package and the kernel's host build.)"""
+    tenv = envs[1]
+    cc = tenv.chain_engine.cc
     chain_step.check_variant(cc)
     chain_step.check_variant(dataclasses.replace(cc, warm_start=False))
-    for flag in ({"plane_per_step": False}, {"wall_thresh": 0.075},
-                 {"torque_mode": True}):
-        with pytest.raises(NotImplementedError):
-            chain_step.check_variant(dataclasses.replace(cc, **flag))
+    assert chain_step.variant(cc, anchored=True) == "K4"
+    assert chain_step.variant(cc) == "K1"
+    state = tenv.initial_state()
+    args = kernel_args(tenv, state)
+    for flag, name in (({"plane_per_step": False}, "K2"),
+                       ({"wall_thresh": 0.075}, "K2"),
+                       ({"torque_mode": True, "decimation": 1}, "K3")):
+        c2 = dataclasses.replace(cc, **flag)
+        chain_step.check_variant(c2)
+        assert chain_step.variant(c2, anchored=True) == name
+        out = chain_kernel.run_decimation(c2, *args,
+                                          anchors=state.contact_ws)
+        assert len(out) == 8
+        assert tuple(out[7].shape) == tuple(state.contact_ws.shape)
+        assert out[7].data_ptr() != state.contact_ws.data_ptr()
+        assert all(bool(torch.isfinite(o).all()) for o in out)
+    with pytest.raises(ValueError):
+        chain_step.check_variant(dataclasses.replace(cc, wall_thresh=-1.0))
 
 
 # ------------------------------------------------ the step with anchors
@@ -244,7 +265,8 @@ def test_plain_step_with_anchors_matches_jax_settled(envs, jax_run):
 
 def test_host_build_of_k4_matches_plain(envs):
     """The kernel source compiled with the host C++ compiler for aliengo's
-    layout (-DS_L0=2), anchors in and out, against the plain version."""
+    layout (-DS_L0=2), anchors in and out, against the plain
+    version."""
     if shutil.which("c++") is None and shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     tenv = envs[1]
@@ -283,22 +305,21 @@ def test_wrapper_contract_with_anchors(envs):
     cc = tenv.chain_engine.cc
     state = tenv.initial_state()
     args = kernel_args(tenv, state)
-    before = chain_kernel.run_decimation_anchored_cuda.launches
-    out = chain_kernel.run_decimation_anchored_cuda(cc, *args,
-                                                    state.contact_ws)
+    before = dict(chain_kernel.launches)
+    out = chain_kernel.run_decimation(cc, *args, anchors=state.contact_ws)
     ref = chain_step.run_decimation_chain(cc, *args,
                                           anchors=state.contact_ws)
     # CPU tensors ran the plain version: no launch counted, same bits
-    assert chain_kernel.run_decimation_anchored_cuda.launches == before
+    assert chain_kernel.launches == before
     for r, o in zip(ref, out):
         torch.testing.assert_close(o, r, rtol=0, atol=0)
     with pytest.raises(ValueError):
-        chain_kernel.run_decimation_anchored_cuda(
+        chain_kernel.run_decimation(
             dataclasses.replace(cc, warm_start=False), *args,
-            state.contact_ws)
+            anchors=state.contact_ws)
     with pytest.raises(ValueError):
-        chain_kernel.run_decimation_anchored_cuda(
-            cc, *args, state.contact_ws.to("meta"))
+        chain_kernel.run_decimation(
+            cc, *args, anchors=state.contact_ws.to("meta"))
     if shutil.which("c++") or shutil.which("g++"):
         with pytest.raises(ValueError):
             chain_kernel.run_decimation_host(
@@ -413,8 +434,8 @@ def test_k4_kernel_matches_plain_on_card():
         args = kernel_args(env, state)
         ref = chain_step.run_decimation_chain(cc, *args,
                                               anchors=state.contact_ws)
-        out = chain_kernel.run_decimation_anchored_cuda(cc, *args,
-                                                        state.contact_ws)
+        out = chain_kernel.run_decimation(cc, *args,
+                                          anchors=state.contact_ws)
         torch.cuda.synchronize()
         tol = tolerances(settled)
         for name, v in per_env_errors(ref[:7], out[:7]).items():

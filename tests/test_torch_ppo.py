@@ -475,7 +475,9 @@ def test_get_args_flags():
     assert (tcfg.runner.experiment_name, tcfg.runner.run_name,
             tcfg.runner.load_run, tcfg.runner.checkpoint) == ("e", "r", "x",
                                                               4)
-    assert registry.task_names() == ["go1", "aliengo"]
+    assert registry.task_names() == [
+        "anymal_c_rough", "anymal_c_flat", "anymal_b", "a1", "cassie",
+        "a1_src", "go1", "aliengo"]
 
 
 def _run_train(argv, cwd=None):
