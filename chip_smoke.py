@@ -4,13 +4,17 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. build the fused physics kernel (physics/csrc/chain_step.cu) with nvcc,
-     one library per robot layout (go1, aliengo, cassie, anymal_c, a1), all
-     compilers started together; print the build time and the assembler's
-     register / stack report per layout;
+     one library per robot layout (go1, aliengo, cassie, anymal_c, a1) and
+     lane count per env (G_LANES 16 and 8), all compilers started
+     together; print the build time, each build's shared memory per env
+     and the assembler's register / stack / spill report, and the G_LANES
+     each main path's launch takes (chain_kernel.launch_library);
   2. hold each kernel variant against its plain PyTorch version on the
      card, on a fresh reset and on a settled state (30 zero-action steps),
-     time both with CUDA events and count the plain version's float
-     operations for the bound:
+     time both with CUDA events (the kernel through the wrapper, which is
+     the kernels line's ms, and alone, relaunched on buffers prepared
+     once) and count the plain version's float operations for the bound,
+     printed as the bound's share of the kernel's time:
        K1 — go1 on rough terrain at 1800 envs;
        K4 — aliengo at its own 4096 envs with warm-start friction anchors,
             anchors compared too;
@@ -99,6 +103,8 @@ def check_kernel(tag, env, smi, variant, timed=True, switch_share=0.0,
              f"{chain_step.variant(cc, anchored)}, not {variant}")
     cv = chain_step.const_tensors(cc, DEVICE)
     table = torch.as_tensor(chain_kernel.const_table(cc), device=DEVICE)
+    lib = chain_kernel.launch_library(chain_kernel.model_layout(cc.cm), n,
+                                      anchored)
     state = env.initial_state()
     zeros = torch.zeros((n, env.num_actions), device=DEVICE)
 
@@ -187,12 +193,15 @@ def check_kernel(tag, env, smi, variant, timed=True, switch_share=0.0,
             fresh_errs = errs
         if not timed:
             continue
+        go, _ = chain_kernel.bind_launch(lib, cc, args, table, anchors)
         timings[label] = (
             kn.cuda_ms(lambda: kernel(args, anchors), reps=50),
-            kn.cuda_ms(lambda: plain(args, anchors), reps=2, warmup=1))
+            kn.cuda_ms(lambda: plain(args, anchors), reps=2, warmup=1),
+            kn.cuda_ms(go, reps=200))
         print(f"phase 2 {tag} [{label}]: kernel {timings[label][0]:.4f} "
-              f"ms/launch, plain version {timings[label][1]:.3f} ms/call "
-              f"[{smi}]")
+              f"ms/launch through the wrapper ({timings[label][2]:.4f} "
+              f"alone, on buffers prepared once), plain version "
+              f"{timings[label][1]:.3f} ms/call [{smi}]")
     if not timed:
         return None
     flops = kn.count_flops(lambda: plain(args, anchors))
@@ -204,12 +213,14 @@ def check_kernel(tag, env, smi, variant, timed=True, switch_share=0.0,
     ops_ms = 1e3 * flops / FP32_FLOPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    kernel_ms, plain_ms = timings["settled"]
+    kernel_ms, plain_ms, alone_ms = timings["settled"]
     print(f"phase 2 {tag}: bound {bound_ms:.4f} ms: {n_bytes} bytes -> "
           f"{bytes_ms:.4f} ms, {flops} fp32 ops -> {ops_ms:.4f} ms "
           f"({bound_by}); the bound is {100 * bound_ms / kernel_ms:.2f}% of "
-          f"the kernel's time [{smi}]")
-    if not all(math.isfinite(v) for v in (kernel_ms, plain_ms, bound_ms)):
+          f"the kernel's time through the wrapper, "
+          f"{100 * bound_ms / alone_ms:.2f}% of its time alone [{smi}]")
+    if not all(math.isfinite(v)
+               for v in (kernel_ms, plain_ms, alone_ms, bound_ms)):
         fail(f"{tag}: non-finite timing")
     entry = {
         "max_abs_err": max(fresh_errs[k] for k in kn.NAMES[:6]),
@@ -350,15 +361,34 @@ def main():
                for e in (go1_env, ali_env, cas_env, any_env, a1_env)]
     if len(set(layouts)) != len(layouts):
         fail(f"two robots share one layout: {layouts}")
+    builds = [(layout, g) for layout in layouts
+              for g in chain_kernel.LANE_CHOICES]
     t0 = time.perf_counter()
-    chain_kernel.build_libraries(layouts)
-    print(f"phase 1: {len(layouts)} kernel libraries {layouts} built in "
-          f"{time.perf_counter() - t0:.1f} s [{smi}]")
-    for layout in layouts:
-        log = chain_kernel.build_log.get(("cuda", layout), "")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {layout}: {line.strip()}")
+    libs = chain_kernel.build_libraries([b[0] for b in builds],
+                                        lanes=[b[1] for b in builds])
+    print(f"phase 1: {len(builds)} kernel libraries ({len(layouts)} "
+          f"layouts {layouts} x G_LANES {chain_kernel.LANE_CHOICES}) built "
+          f"in {time.perf_counter() - t0:.1f} s [{smi}]")
+    for (layout, g), lib in zip(builds, libs):
+        lay = chain_kernel.library_layout(lib)
+        print(f"  {layout} G_LANES {lay['G_LANES']}: "
+              f"{lay['SHARED_PER_ENV']} bytes of shared memory per env")
+        log = chain_kernel.build_log.get(chain_kernel.library_key(
+            "cuda", chain_kernel.CUDA_NUMERICS, layout, g), "")
+        for line in kn.ptxas_report(log):
+            print(f"    ptxas: {line}")
+    for e, layout in zip((go1_env, ali_env, cas_env, any_env, a1_env),
+                         layouts):
+        n, warm = e.num_envs, e._warm_start
+        fits = {g: chain_kernel.library_fit(chain_kernel.load_library(
+            layout=layout, lanes=g), n, warm)
+            for g in chain_kernel.LANE_CHOICES}
+        g = chain_kernel.library_layout(chain_kernel.launch_library(
+            layout, n, warm))["G_LANES"]
+        print(f"  {e.cfg.asset.name} at {n} envs: G_LANES {g} (warps "
+              f"started / held at once: " + ", ".join(
+                  f"G {k} {a} / {b}" for k, (a, b) in fits.items())
+              + ")")
 
     # ---- phase 2: each kernel variant vs its plain version ----
     entry_k1 = check_kernel("K1 go1 rough 1800", go1_env, smi, "K1")

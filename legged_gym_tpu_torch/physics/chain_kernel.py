@@ -19,14 +19,15 @@ that keeps a launch count per variant (``launches``, keyed by
 Bound and design: a launch must move about 2.6 KB per env on go1 (1.1 KB
 of state, link parameters and outputs, and of the 24x24 contact patch the
 four corners of each of the 92 contact points' query cells), about 4.7 MB
-at 1800 envs, which is 1.4 us at 3.35 TB/s; its arithmetic is a long serial chain of 3x3 / 6x6 algebra per env, so the
-launch is bounded by latency. The kernel runs one thread per env with the
-whole state in registers and thread-local memory across the decimation
-loop, and reads the constants through the cache (see the note at the top
-of the .cu source for the next steps). K4's anchors (3 floats per point
-each way, +2 KB per env on aliengo) stay in global memory: each substep
-reads a point's anchor and writes the new one, env axis last so a warp's
-accesses coalesce, instead of adding 252 floats to the thread's stack.
+at 1800 envs, which is 1.4 us at 3.35 TB/s; its arithmetic is a long
+chain of dependent 3x3 / 6x6 algebra per env, so the launch is bounded by
+latency. A group of G lanes of a warp runs one env (``-DG_LANES``, per
+launch the larger of 16 and 8 whose warps the card holds at once:
+:func:`launch_library`): one lane per chain for FK and the ABA
+passes, the contact points spread over the group with each point's plane
+and (K4) anchor in its owner lane's registers for the whole launch, the
+exchanges through a per-env record in shared memory, every sum in a fixed
+order (the note at the top of the .cu source gives the details).
 
 The model's shape (levels, chains, point-group sizes, report bodies) is
 compiled in (``-D`` defines): one library per layout, built at first use
@@ -83,16 +84,30 @@ MAX_LVL = 8
 
 # (L, K, S_BASE, (S_0 .. S_{L-1}), n_bodies) of the source's defaults
 GO1_LAYOUT = (3, 4, 8, (4, 8, 9), 17)
+# lanes per env (G_LANES) a launch on the card may take, largest first: it
+# takes the largest whose warps the card holds at once (one wave), else the
+# last (pick_lanes). On the H100 an SM holds 8-16 warps of this kernel; the
+# sweep of PERF.md §6 (scripts/kernel_numerics.py --sweep) found G 16
+# fastest where its warps fit one wave (go1 and cassie at 1800 envs) and
+# G 8 where they do not (4096 envs, 2,048 warps at G 16), but for anymal
+# at 4096, where both fit and 8 is 2% faster; G 32, and 2 or 4 for
+# cassie, lost everywhere. Any power of two from K to 32 builds.
+LANE_CHOICES = (16, 8)
+# the lanes of a library loaded without a choice, as the host build is:
+# its arithmetic, and so its results, do not depend on G
+DEFAULT_LANES = LANE_CHOICES[-1]
 # flags of chain_step_run, mirrored by the #defines of chain_step.cu
 FLAG_WARM, FLAG_TORQUE, FLAG_PLANE_PER_DT = 1, 2, 4
 
 _libs = {}
+# (layout, n, anchored, device index) -> the library launch_library picked
+_launch_libs = {}
 # per-launch lookups, kept off the hot path: id(chain model) -> (model,
 # layout), id(library) -> its layout dict
 _model_layouts = {}
 _lib_layouts = {}
 _build_lock = threading.Lock()
-# compiler output: kind -> the last build's, (kind, layout) -> that one's
+# compiler output of each build made by this process, by library_key(...)
 build_log = {}
 
 
@@ -145,13 +160,24 @@ def model_layout(cm):
     return layout
 
 
-def _lib_key(kind, numerics, layout):
+def pick_lanes(fits):
+    """The lanes per env of a launch: the first of ``fits`` (G -> (warps
+    the launch starts, warps of it the card holds at once), largest G
+    first) whose launch fits one wave, else the last."""
+    for g, (need, held) in fits.items():
+        if need <= held:
+            return g
+    return g
+
+
+def library_key(kind, numerics, layout, lanes=DEFAULT_LANES, source=SOURCE):
+    """The key of one library in ``_libs`` and ``build_log``."""
     L, K, s_base, s_lvls, nb = layout
     return (kind, tuple(numerics) if kind == "cuda" else (),
-            (L, K, s_base, tuple(s_lvls), nb))
+            (L, K, s_base, tuple(s_lvls), nb), lanes, source)
 
 
-def _build_spec(kind, numerics, layout):
+def _build_spec(kind, numerics, layout, lanes, source):
     """(command without the output, output path) of one library."""
     L, K, s_base, s_lvls, nb = layout
     if len(s_lvls) != L:
@@ -164,22 +190,25 @@ def _build_spec(kind, numerics, layout):
     # the model does not have are 0
     sizes = tuple(s_lvls) + (0,) * (MAX_LVL - L)
     defines = [f"-DL_LVL={L}", f"-DK_CH={K}", f"-DS_BASE={s_base}"] \
-        + [f"-DS_L{l}={v}" for l, v in enumerate(sizes)] + [f"-DNB={nb}"]
+        + [f"-DS_L{l}={v}" for l, v in enumerate(sizes)] \
+        + [f"-DNB={nb}", f"-DG_LANES={lanes}"]
     if kind == "cuda":
         cmd0, flags = [_nvcc()], NVCC_FLAGS + list(numerics) + defines
     else:
         cmd0, flags = [shutil.which("c++") or "g++"], HOST_FLAGS + defines
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         src = f.read()
     tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"libchain_step_{kind}_{tag}.so")
     return cmd0 + flags, out
 
 
-def _finish_build(kind, layout, proc_out, returncode, tmp, out):
-    build_log[kind] = build_log[(kind, layout)] = proc_out
+def _finish_build(key, proc_out, returncode, tmp, out):
+    kind, _, _, lanes, source = key
+    build_log[key] = proc_out
     if returncode != 0:
-        raise RuntimeError(f"building {SOURCE} ({kind}) failed:\n{proc_out}")
+        raise RuntimeError(f"building {source} ({kind}, G_LANES={lanes}) "
+                           f"failed:\n{proc_out}")
     os.replace(tmp, out)
 
 
@@ -192,59 +221,95 @@ def _bind(out):
                                    + [ctypes.c_int] * 5
                                    + [ctypes.c_void_p])
     lib.chain_step_run.restype = ctypes.c_int
+    if hasattr(lib, "chain_step_fit"):      # not in sources before it
+        lib.chain_step_fit.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+        lib.chain_step_fit.restype = ctypes.c_int
     return lib
 
 
-def load_library(kind="cuda", numerics=CUDA_NUMERICS, layout=GO1_LAYOUT):
+def load_library(kind="cuda", numerics=CUDA_NUMERICS, layout=GO1_LAYOUT,
+                 lanes=DEFAULT_LANES, source=SOURCE):
     """Build (at first use) and load the kernel library for one model
     layout (``model_layout``): 'cuda' with nvcc (``numerics``: the
-    floating-point contraction flags), 'host' with the C++ compiler. The
-    build goes to build/kernels/, keyed by a hash of source and flags."""
-    key = _lib_key(kind, numerics, layout)
+    floating-point contraction flags), 'host' with the C++ compiler;
+    ``lanes``: G_LANES (a launch on the card takes launch_library's
+    choice); ``source``: the .cu file (another revision of it, to time two
+    designs in one run). The build goes to build/kernels/, keyed by a hash
+    of source and flags."""
+    key = library_key(kind, numerics, layout, lanes, source)
     lib = _libs.get(key)        # the hot path: one dict lookup per launch
     if lib is not None:
         return lib
-    with _build_lock:
-        if key in _libs:
-            return _libs[key]
-        cmd, out = _build_spec(kind, numerics, layout)
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        if not os.path.isfile(out):
-            tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(cmd + ["-o", tmp, SOURCE],
-                                  capture_output=True, text=True)
-            _finish_build(kind, layout, proc.stdout + proc.stderr,
-                          proc.returncode, tmp, out)
-        _libs[key] = _bind(out)
-        return _libs[key]
+    return build_libraries([layout], kind, numerics, [lanes], source)[0]
 
 
-def build_libraries(layouts, kind="cuda", numerics=CUDA_NUMERICS):
+def build_libraries(layouts, kind="cuda", numerics=CUDA_NUMERICS,
+                    lanes=None, source=SOURCE):
     """Build the libraries of several layouts at once, one compiler
     process each, all started together; returns the loaded libraries in
-    the order of ``layouts``. ``build_log[(kind, layout)]`` keeps each
-    compiler's output."""
+    the order of ``layouts``. ``lanes``: G_LANES per layout (default
+    DEFAULT_LANES); ``source``: one .cu path, or one per layout.
+    ``build_log[library_key(...)]`` keeps the compiler's output of each
+    build."""
+    if lanes is None:
+        lanes = [DEFAULT_LANES] * len(layouts)
+    sources = [source] * len(layouts) if isinstance(source, str) else source
+    keys = [library_key(kind, numerics, layout, g, src)
+            for layout, g, src in zip(layouts, lanes, sources)]
     with _build_lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        running = []
-        for layout in layouts:
-            cmd, out = _build_spec(kind, numerics, layout)
-            if _lib_key(kind, numerics, layout) in _libs \
-                    or os.path.isfile(out):
+        running = {}
+        for key in keys:
+            layout, g, source = key[2:]
+            cmd, out = _build_spec(kind, numerics, layout, g, source)
+            if key in _libs or key in running or os.path.isfile(out):
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
-            running.append((layout, tmp, out, subprocess.Popen(
-                cmd + ["-o", tmp, SOURCE], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
-        for layout, tmp, out, proc in running:
+            running[key] = (tmp, out, subprocess.Popen(
+                cmd + ["-o", tmp, source], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        for key, (tmp, out, proc) in running.items():
             text, _ = proc.communicate()
-            _finish_build(kind, layout, text, proc.returncode, tmp, out)
-    return [load_library(kind, numerics, layout) for layout in layouts]
+            _finish_build(key, text, proc.returncode, tmp, out)
+        for key in keys:
+            if key not in _libs:
+                _libs[key] = _bind(_build_spec(kind, numerics, *key[2:])[1])
+    return [_libs[key] for key in keys]
+
+
+def library_fit(lib, n, anchored):
+    """(warps a launch of ``lib`` for n envs starts, warps of it the
+    current device holds at once; 0 in the host build)."""
+    out = (ctypes.c_int * 2)()
+    err = lib.chain_step_fit(n, FLAG_WARM * bool(anchored), out)
+    if err != 0:
+        raise RuntimeError(f"chain_step occupancy query failed: CUDA error "
+                           f"{err}")
+    return out[0], out[1]
+
+
+def launch_library(layout, n, anchored):
+    """The card's library for a launch of n envs of ``layout`` (with or
+    without anchors) on the current device: of the builds for LANE_CHOICES
+    (made at first use, in parallel), the one pick_lanes takes by
+    library_fit. Cached per (layout, n, anchored, device)."""
+    key = (layout, n, bool(anchored), torch.cuda.current_device())
+    lib = _launch_libs.get(key)     # the hot path: one dict lookup a launch
+    if lib is None:
+        choices = [g for g in LANE_CHOICES if g >= layout[1]]
+        libs = build_libraries([layout] * len(choices), lanes=choices)
+        fits = {g: library_fit(lb, n, anchored)
+                for g, lb in zip(choices, libs)}
+        lib = libs[choices.index(pick_lanes(fits))]
+        _launch_libs[key] = lib
+    return lib
 
 
 def library_layout(lib):
     """(L, K, NG, group sizes, n_bodies, N_CONST, N_SCALAR, JSTRIDE,
-    PSTRIDE, NPTS) the library was built for."""
+    PSTRIDE, NPTS, G_LANES, bytes of shared memory per env) the library
+    was built for (a source of one thread per env reports G_LANES 1)."""
     hit = _lib_layouts.get(id(lib))
     if hit is not None and hit[0] is lib:
         return hit[1]
@@ -254,9 +319,10 @@ def library_layout(lib):
     L, K, ng = v[0], v[1], v[2]
     sizes = tuple(v[3:3 + ng])
     nb, n_const, n_scalar, jstride, pstride, npts = v[3 + ng:9 + ng]
+    lanes, env_bytes = v[9 + ng:11 + ng] if m >= 11 + ng else (1, 0)
     layout = dict(L=L, K=K, NG=ng, S=sizes, NB=nb, N_CONST=n_const,
                   N_SCALAR=n_scalar, JSTRIDE=jstride, PSTRIDE=pstride,
-                  NPTS=npts)
+                  NPTS=npts, G_LANES=lanes, SHARED_PER_ENV=env_bytes)
     _lib_layouts[id(lib)] = (lib, layout)
     return layout
 
@@ -386,12 +452,11 @@ def _prepare(cc, args, lib, consts=None, anchors=None):
     return list(args), outs, consts, anchors_out
 
 
-def launch(lib, cc, args, consts=None, anchors=None):
-    """Run ``lib``'s chain step on ``args`` (all on one device: the CUDA
-    build on the current stream of a CUDA device, the host build on the
-    CPU) in the configuration ``cc`` selects; validates the contract,
-    allocates and returns the 7 outputs, and the new anchors (a buffer of
-    their own, never the input's) as an 8th when ``anchors`` is given."""
+def bind_launch(lib, cc, args, consts=None, anchors=None):
+    """Validate the contract and allocate the outputs of one launch of
+    ``lib``'s chain step on ``args``; returns (go, outputs): go() launches
+    the kernel on those buffers (again on each call, raising if a launch
+    fails), so a timing loop can leave out the checks and allocations."""
     ins, outs, consts, anchors_out = _prepare(cc, args, lib, consts, anchors)
     stream = None
     dev = ins[7].device
@@ -404,14 +469,30 @@ def launch(lib, cc, args, consts=None, anchors=None):
         [t.data_ptr() for t in outs] + \
         [anchors.data_ptr() if warm else None,
          anchors_out.data_ptr() if warm else None]
-    err = lib.chain_step_run(*ptrs, ins[7].shape[-1], cc.patch_S,
-                             cc.decimation, cc.substeps, flags, stream)
-    if err != 0:
-        raise RuntimeError(f"chain_step kernel launch failed: CUDA error "
-                           f"{err}")
-    if warm:
-        return tuple(outs) + (anchors_out,)
-    return tuple(outs)
+    tail = (ins[7].shape[-1], cc.patch_S, cc.decimation, cc.substeps, flags,
+            stream)
+
+    def go():
+        err = lib.chain_step_run(*ptrs, *tail)
+        if err != 0:
+            raise RuntimeError(f"chain_step kernel launch failed: CUDA "
+                               f"error {err}")
+
+    # the tensors behind ptrs live as long as go
+    go.buffers = (ins, outs, consts, anchors, anchors_out)
+
+    return go, tuple(outs) + ((anchors_out,) if warm else ())
+
+
+def launch(lib, cc, args, consts=None, anchors=None):
+    """Run ``lib``'s chain step on ``args`` (all on one device: the CUDA
+    build on the current stream of a CUDA device, the host build on the
+    CPU) in the configuration ``cc`` selects; validates the contract,
+    allocates and returns the 7 outputs, and the new anchors (a buffer of
+    their own, never the input's) as an 8th when ``anchors`` is given."""
+    go, outs = bind_launch(lib, cc, args, consts, anchors)
+    go()
+    return outs
 
 
 def _one_device(tensors):
@@ -459,19 +540,20 @@ def run_decimation(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat,
     if dev.type != "cuda":
         raise ValueError(f"no chain kernel for device {dev}")
     with torch.cuda.device(dev):
-        out = launch(load_library("cuda", layout=model_layout(cc.cm)), cc,
-                     args, consts, anchors)
+        lib = launch_library(model_layout(cc.cm), pos.shape[-1],
+                             anchors is not None)
+        out = launch(lib, cc, args, consts, anchors)
     launches[chain_step.variant(cc, anchored=anchors is not None)] += 1
     return out
 
 
-def run_decimation_host(cc, *args, anchors=None):
+def run_decimation_host(cc, *args, anchors=None, lanes=DEFAULT_LANES):
     """The kernel source built with the host C++ compiler and run over CPU
-    tensors: the same per-env arithmetic as the card, for tests, in the
-    configuration ``cc`` selects. With ``anchors`` it returns the new
-    anchors as an 8th output."""
+    tensors: the same per-env arithmetic, in the same order, as the card,
+    for tests, in the configuration ``cc`` selects; ``lanes``: G_LANES.
+    With ``anchors`` it returns the new anchors as an 8th output."""
     tensors = args if anchors is None else args + (anchors,)
     if any(t.device.type != "cpu" for t in tensors):
         raise ValueError("run_decimation_host takes CPU tensors")
-    lib = load_library("host", layout=model_layout(cc.cm))
+    lib = load_library("host", layout=model_layout(cc.cm), lanes=lanes)
     return launch(lib, cc, args, anchors=anchors)

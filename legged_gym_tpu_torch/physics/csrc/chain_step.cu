@@ -26,32 +26,43 @@
 // Bound: a launch must move about 2.6 KB per env on Go1 (1.1 KB of state,
 // link parameters and outputs, and of the 24x24 contact patch the four
 // corners of each of the 92 contact points' query cells), about 4.7 MB at
-// 1800 envs: 1.4 us at 3.35 TB/s. The arithmetic
-// is a long serial chain of 3x3 / 6x6 algebra per env (FK, contacts, ABA),
-// so the launch is bounded by latency, not by bytes or peak FLOP/s.
-// Design: one thread per env, state in registers / thread-local memory for
-// the whole decimation loop, the constant table read through the cache,
-// blocks of 32 threads so the ~57 warps at 1800 envs spread over the SMs.
-// K cooperating threads per env (one per chain, shuffles for the base
-// sums) is the next step for speed.
-// The anchors (3 floats in and 3 out per contact point and env, 504 floats
-// per env for aliengo's 84 points) never enter thread-local memory: a
-// substep reads each point's anchor from global memory (the input at the
-// first substep of the launch, the output buffer afterwards) and writes the
-// new one to the output buffer; the env axis is last, so a warp's reads and
-// writes coalesce and the rereads hit the cache. Input and output are two
-// buffers; the SEA path's next launch reads what this one wrote.
-// WARM is a template parameter (it adds a global-memory round trip and a
-// second force law to every point: two instantiations keep K1 free of
-// both). The torque drive, the per-sim-dt plane and the wall rule are
-// run-time flags: each is one warp-uniform test per joint, per point and
-// substep, or per plane, they leave K1's arithmetic as it was when off, and
-// as template parameters they would multiply the instantiations (and the
-// compile time of every layout's library) by eight.
+// 1800 envs: 1.4 us at 3.35 TB/s, and its float operations take about 3 us
+// at the card's float32 peak. Neither binds: per env the work is a long
+// chain of dependent 3x3 / 6x6 algebra (FK down each chain, 92 contact
+// points, three ABA passes, a 6x6 solve) repeated for every substep, so
+// the launch is bounded by the latency of that chain and by how many envs
+// the SMs hold at once to hide it.
+// Design: a group of G_LANES consecutive lanes of a warp runs one env (a -D
+// define; chain_kernel.py builds 8 and 16 and picks, per launch, the larger
+// whose warps the card holds at once: chain_step_fit). Inside each substep the
+// work is split by owner (see "lane group" below): a chain's FK and ABA
+// passes 2 and 3 on one lane per chain, a contact point on the lane that
+// owns it, a link's point sums and ABA pass 1 on the lane that owns the
+// link, the base's state and its 6x6 solve on every lane alike. So one
+// env's serial path per substep is ~NPTS/G points, one chain's L levels
+// and a few exchanges instead of all of it, and 1800 Go1 envs fill every
+// SM with several warps (57 warps at one thread per env, 900 at G = 16).
+// Exchange goes through a per-env record in shared memory, with a warp
+// barrier between phases: link frames fan out from a chain's lane to the
+// lanes that own the link's points, point forces come back to the link's
+// owner, the chains' inertias to every lane. Each sum runs on one lane in
+// a fixed order (the order of the one-thread-per-env kernel before it),
+// with no atomics, so a launch gives the same bits on every run, and every
+// lane that needs the base's acceleration computes it from the same inputs
+// in the same order. A point's contact plane (7 floats) and, with K4, its
+// friction anchor (3 floats) stay in its owner lane's registers for the
+// whole launch: the anchors are read once from `anc` and written once to
+// `anc_o`. WARM is a template parameter (it adds the anchors and a second
+// force law to every point: two instantiations keep K1 free of both). The
+// torque drive, the per-sim-dt plane and the wall rule are run-time flags:
+// each is one warp-uniform test per joint, per point and substep, or per
+// plane; as template parameters they would multiply the instantiations
+// (and the compile time of every layout's library) by eight.
 //
-// The same file compiles as plain C++ (g++ -x c++) into a
-// host loop over envs with the identical per-env arithmetic; the CPU tests
-// use that build to check this source without a card.
+// The same file compiles as plain C++ (g++ -x c++) into a host loop over
+// envs in which each phase is a loop over the G lanes of one env and a
+// local record stands in for shared memory: the arithmetic and its order
+// are the card's, so the CPU tests check this source without a card.
 
 #include <math.h>
 
@@ -111,7 +122,7 @@
 static_assert(L_LVL >= 1 && L_LVL <= MAX_LVL, "L_LVL out of range");
 #define NG (1 + L_LVL)
 #define NPTS (S_BASE + K_CH * S_SUM)          // Go1: 92
-// thread-local arrays need at least one element
+// arrays sized by these need at least one element
 #define NPTS1 (NPTS > 0 ? NPTS : 1)
 #define NB1 (NB > 0 ? NB : 1)
 
@@ -585,28 +596,6 @@ HD V3 contact_force(const float* C, const float* P, const float* pl, V3 p,
   return v3(fn * nx - ft * vtx, fn * ny - ft * vty, fn * nz - ft * vtz);
 }
 
-// one point's contact force; with WARM its anchor travels through global
-// memory: read from `src` (3, NPTS, N), the new one written to A.anc_o
-template <bool WARM>
-HD V3 point_force(const Args& A, const float* src, int e, int pidx,
-                  const float* P, const float* pl, V3 p, V3 v,
-                  float mu_env) {
-  V3 anc = v3(0.f, 0.f, 0.f), anc_new = anc;
-  if (WARM) {
-    const size_t n = (size_t)A.n;
-    anc = v3(src[(size_t)pidx * n + e], src[(size_t)(NPTS + pidx) * n + e],
-             src[(size_t)(2 * NPTS + pidx) * n + e]);
-  }
-  V3 f = contact_force<WARM>(A.cst, P, pl, p, v, mu_env, anc, &anc_new);
-  if (WARM) {
-    const size_t n = (size_t)A.n;
-    A.anc_o[(size_t)pidx * n + e] = anc_new.x;
-    A.anc_o[(size_t)(NPTS + pidx) * n + e] = anc_new.y;
-    A.anc_o[(size_t)(2 * NPTS + pidx) * n + e] = anc_new.z;
-  }
-  return f;
-}
-
 // joint rotation R(q) = RjA cos q + RjB sin q + RjC
 HD M3 joint_rot(const float* J, float qv) {
   float cq = cosf(qv), sq = sinf(qv);
@@ -618,21 +607,29 @@ HD M3 joint_rot(const float* J, float qv) {
   return r;
 }
 
-// articulated-body pass 1 for one link: inertia blocks and bias wrench
-HD void pass1(const float par[10], const M3& Rw, V3 w, V3 v, V3 g, V3 f_ext,
-              V3 n_ext, M3* IA_A, M3* IA_B, M3* IA_C, V3* pn, V3* pf) {
+// a link's spatial inertia as the blocks [[A, skew(h)], [skew(h)^T, m I]]
+// of its 10 parameters (m, h, the upper triangle of A)
+HD void inertia_blocks(const float par[10], M3* IA_A, M3* IA_B, M3* IA_C) {
   float m = par[0];
-  V3 h = v3(par[1], par[2], par[3]);
   M3 A;
   A.a[0][0] = par[4]; A.a[0][1] = par[5]; A.a[0][2] = par[6];
   A.a[1][0] = par[5]; A.a[1][1] = par[7]; A.a[1][2] = par[8];
   A.a[2][0] = par[6]; A.a[2][1] = par[8]; A.a[2][2] = par[9];
   *IA_A = A;
-  *IA_B = skew(h);
+  *IA_B = skew(v3(par[1], par[2], par[3]));
   M3 Cm;
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) Cm.a[i][j] = (i == j) ? m : 0.f;
   *IA_C = Cm;
+}
+
+// articulated-body pass 1 for one link: inertia blocks and bias wrench
+HD void pass1(const float par[10], const M3& Rw, V3 w, V3 v, V3 g, V3 f_ext,
+              V3 n_ext, M3* IA_A, M3* IA_B, M3* IA_C, V3* pn, V3* pf) {
+  float m = par[0];
+  V3 h = v3(par[1], par[2], par[3]);
+  inertia_blocks(par, IA_A, IA_B, IA_C);
+  const M3& A = *IA_A;
   V3 n_m = vadd(mv(A, w), vcross(h, v));
   V3 f_m = vsub(vscale(v, m), vcross(h, w));
   V3 pA_n = vadd(vcross(w, n_m), vcross(v, f_m));
@@ -644,318 +641,593 @@ HD void pass1(const float par[10], const M3& Rw, V3 w, V3 v, V3 g, V3 f_ext,
   *pf = vsub(pA_f, f_tot);
 }
 
-// what pass 3 needs of one joint
-struct Joint3 {
-  M3 R;
-  V3 Ua, Ul, ca, cl;
-  float di, u;
+// ------------------------------------------------------------- lane group
+// G_LANES consecutive lanes of a warp run one env. Owners, per substep:
+//   chain k       lane k          FK, joint torques, ABA passes 2 and 3,
+//                                 the state of its joints
+//   link j        lane j % G      the sums of its points' wrenches and ABA
+//                                 pass 1 (j = l * K + k; the base is j = NJ)
+//   point p       lane p % G      its plane, anchor and contact force
+//   body b        lane b % G      its contact-sensor sum (last substep)
+//   every lane                    the base state, the base sums and the
+//                                 6x6 solve, the same arithmetic in each
+#ifndef G_LANES
+#define G_LANES 16
+#endif
+static_assert(G_LANES >= 1 && G_LANES <= 32
+              && (G_LANES & (G_LANES - 1)) == 0,
+              "G_LANES must be a power of two of at most 32");
+static_assert(G_LANES >= K_CH, "a lane group needs one lane per chain");
+#define NJ (L_LVL * K_CH)
+#define PPL ((NPTS1 + G_LANES - 1) / G_LANES)   // points per lane
+#define JPL ((NJ + 1 + G_LANES - 1) / G_LANES)  // links per lane, base too
+#define BPL ((NB1 + G_LANES - 1) / G_LANES)     // report bodies per lane
+
+#if defined(__CUDACC__)
+#define UNROLL _Pragma("unroll")
+#else
+#define UNROLL
+#endif
+// loops that index a Lane's arrays are unrolled, so the arrays stay in
+// registers
+
+HD void mstore(float* d, const M3& A) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) d[i * 3 + j] = A.a[i][j];
+}
+HD M3 mload(const float* s) {
+  M3 r;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) r.a[i][j] = s[i * 3 + j];
+  return r;
+}
+HD void vstore(float* d, V3 v) { d[0] = v.x; d[1] = v.y; d[2] = v.z; }
+
+// the link (j = l * K + k, or NJ for the base) that point `pidx` rides on
+HD int point_link(int pidx) {
+  if (pidx < S_BASE) return NJ;
+  for (int l = 0; l < L_LVL; ++l) {
+    const int gb = group_base(l + 1);
+    if (pidx < gb + K_CH * group_size(l + 1))
+      return l * K_CH + (pidx - gb) % K_CH;
+  }
+  return NJ;
+}
+
+// A link's frame: world rotation and origin, angular and linear velocity in
+// the link frame.
+struct Frame {
+  float R[9], p[3], w[3], v[3];
 };
 
-// ------------------------------------------------------------- per env
+// articulated inertia blocks A, B, C and bias (n, f): the base's own after
+// pass 1, or a chain's contribution to the base after pass 2
+#define AB_A 0
+#define AB_B 9
+#define AB_C 18
+#define AB_N 27
+#define AB_F 30
+#define AB_W 33
+
+// What the lanes of one env exchange (shared memory on the card).
+struct EnvShared {
+  Frame fr[NJ];            // FK -> point owners, pass 1, pass 2
+  float Rl[NJ][9];         // joint rotations R(q): FK -> passes 2 and 3
+  float pt[NPTS1][6];      // point force and its moment about the link
+                           // origin -> link sums, body sums
+  float lk[NJ][16];        // pass-1 bias (n, f) and the 10 inertia
+                           // parameters of each link -> pass 2
+  float jt[NJ][14];        // Ua, Ul, ca, cl, 1/D, u: pass 2 -> pass 3
+  float cb[K_CH][AB_W];    // each chain's contribution to the base
+  float base[AB_W];        // the base's pass-1 blocks
+};
+
+// What one lane keeps in registers across the launch.
+struct Lane {
+  float pos[3], qt[4], vel[6];        // base state, alike in every lane
+  float q[L_LVL], qd[L_LVL];          // chain `lane`'s joints (lane < K)
+  float tgt[L_LVL], tau[L_LVL];
+  float pl[PPL][PL];                  // planes of the lane's points
+  float anc[PPL][3];                  // their anchors (WARM)
+  int plink[PPL];                     // their links
+  float mu, r0f, c0f;
+  int e;                              // env (the last one past the end)
+};
+
+HD V3 base_w(const Lane& me) { return v3(me.vel[0], me.vel[1], me.vel[2]); }
+HD V3 base_v(const Lane& me) { return v3(me.vel[3], me.vel[4], me.vel[5]); }
+
 template <bool WARM>
-HD void chain_env(const Args& A, int e) {
-  const float* C = A.cst;
+HD void lane_init(const Args& A, Lane& me, int e, int lane) {
   const int n = A.n;
-  const float dt = C[C_DT];
+  me.e = e;
+  for (int i = 0; i < 3; ++i) me.pos[i] = A.pos[i * n + e];
+  for (int i = 0; i < 4; ++i) me.qt[i] = A.quat[i * n + e];
+  for (int i = 0; i < 6; ++i) me.vel[i] = A.vel[i * n + e];
+  UNROLL
+  for (int l = 0; l < L_LVL; ++l) {
+    const int idx = (l * K_CH + lane) * n + e;
+    const bool mine = lane < K_CH;
+    me.q[l] = mine ? A.q[idx] : 0.f;
+    me.qd[l] = mine ? A.qd[idx] : 0.f;
+    me.tgt[l] = mine ? A.targets[idx] : 0.f;
+    me.tau[l] = 0.f;
+  }
+  me.mu = A.mu[e];
+  me.r0f = (float)A.r0[e];
+  me.c0f = (float)A.c0[e];
+  UNROLL
+  for (int i = 0; i < PPL; ++i) {
+    const int pidx = lane + i * G_LANES;
+    me.plink[i] = point_link(pidx);
+    if (WARM && pidx < NPTS) {
+      const size_t nn = (size_t)n;
+      me.anc[i][0] = A.anc[(size_t)pidx * nn + e];
+      me.anc[i][1] = A.anc[(size_t)(NPTS + pidx) * nn + e];
+      me.anc[i][2] = A.anc[(size_t)(2 * NPTS + pidx) * nn + e];
+    }
+  }
+}
+
+// (a) FK of chain k on lane k: each link's frame into the record
+HD void phase_fk(const Args& A, Lane& me, EnvShared& sh, int lane) {
+  if (lane >= K_CH) return;
+  const int k = lane;
+  const float* C = A.cst;
+  M3 Rp = quat_to_matrix(me.qt);
+  V3 pp = vload(me.pos), wp = base_w(me), vp = base_v(me);
+  UNROLL
+  for (int l = 0; l < L_LVL; ++l) {
+    const int j = l * K_CH + k;
+    const float* J = C + JOFF + j * JSTRIDE;
+    V3 pj = vload(J + J_PJ);
+    V3 ax = vload(J + J_AX);
+    M3 R = joint_rot(J, me.q[l]);
+    M3 Rw = mm(Rp, R);
+    V3 pw = vadd(pp, mv(Rp, pj));
+    V3 wl = vadd(mtv(R, wp), vscale(ax, me.qd[l]));
+    V3 vl = mtv(R, vadd(vp, vcross(wp, pj)));
+    Frame& f = sh.fr[j];
+    mstore(f.R, Rw); vstore(f.p, pw); vstore(f.w, wl); vstore(f.v, vl);
+    mstore(sh.Rl[j], R);
+    Rp = Rw; pp = pw; wp = wl; vp = vl;
+  }
+}
+
+// (b) the lane's contact points: plane (at `resample`), force, moment
+template <bool WARM>
+HD void phase_points(const Args& A, Lane& me, EnvShared& sh, int lane,
+                     bool resample) {
+  const float* C = A.cst;
+  const M3 R0 = quat_to_matrix(me.qt);
+  UNROLL
+  for (int i = 0; i < PPL; ++i) {
+    const int pidx = lane + i * G_LANES;
+    if (pidx >= NPTS) continue;
+    const int j = me.plink[i];
+    M3 R;
+    V3 p, w, v;
+    if (j == NJ) {
+      R = R0; p = vload(me.pos); w = base_w(me); v = base_v(me);
+    } else {
+      const Frame& f = sh.fr[j];
+      R = mload(f.R); p = vload(f.p); w = vload(f.w); v = vload(f.v);
+    }
+    const float* P = C + POFF + pidx * PSTRIDE;
+    V3 off = vload(P + P_OFF);
+    V3 cp = vadd(p, mv(R, off));
+    V3 cv = mv(R, vadd(v, vcross(w, off)));
+    if (resample) make_plane(A, me.e, P, cp.x, cp.y, me.r0f, me.c0f, me.pl[i]);
+    V3 anc = v3(0.f, 0.f, 0.f), anc_new = anc;
+    if (WARM) anc = v3(me.anc[i][0], me.anc[i][1], me.anc[i][2]);
+    V3 fc = contact_force<WARM>(C, P, me.pl[i], cp, cv, me.mu, anc, &anc_new);
+    if (WARM) {
+      me.anc[i][0] = anc_new.x; me.anc[i][1] = anc_new.y;
+      me.anc[i][2] = anc_new.z;
+    }
+    float* out = sh.pt[pidx];
+    vstore(out, fc);
+    vstore(out + 3, vcross(vsub(cp, p), fc));
+  }
+}
+
+// (c) a link's point sums and ABA pass 1; at the last substep also the
+// contact sensor of the lane's report bodies, written out
+HD void phase_links(const Args& A, Lane& me, EnvShared& sh, int lane,
+                    bool last, bool valid) {
+  const float* C = A.cst;
+  const int n = A.n, e = me.e;
   const V3 g = v3(C[C_GX], C[C_GY], C[C_GZ]);
-
-  float pos[3], qt[4], vel[6], q[L_LVL][K_CH], qd[L_LVL][K_CH];
-  float tgt[L_LVL][K_CH], tau_pd[L_LVL][K_CH];
-  for (int i = 0; i < 3; ++i) pos[i] = A.pos[i * n + e];
-  for (int i = 0; i < 4; ++i) qt[i] = A.quat[i * n + e];
-  for (int i = 0; i < 6; ++i) vel[i] = A.vel[i * n + e];
-  for (int l = 0; l < L_LVL; ++l)
-    for (int k = 0; k < K_CH; ++k) {
-      int idx = (l * K_CH + k) * n + e;
-      q[l][k] = A.q[idx];
-      qd[l][k] = A.qd[idx];
-      tgt[l][k] = A.targets[idx];
-      tau_pd[l][k] = 0.f;
-    }
-  const float mu_env = A.mu[e];
-  const float r0f = (float)A.r0[e], c0f = (float)A.c0[e];
-  float lpb[10];
-  for (int i = 0; i < 10; ++i) lpb[i] = A.lp_base[i * n + e];
-
-  // ---- contact planes, sampled once from the entry state (or, with
-  // plane_per_dt, in the loop at the first substep of every sim dt) ----
-  float plane[NPTS1][PL];
-  if (!A.plane_per_dt) {
-    M3 R0 = quat_to_matrix(qt);
-    V3 p0 = vload(pos);
-    for (int s = 0; s < S_BASE; ++s) {
-      const float* P = C + POFF + s * PSTRIDE;
-      V3 pp = vadd(p0, mv(R0, vload(P + P_OFF)));
-      make_plane(A, e, P, pp.x, pp.y, r0f, c0f, plane[s]);
-    }
-    for (int k = 0; k < K_CH; ++k) {
-      M3 Rp = R0;
-      V3 pp = p0;
-      for (int l = 0; l < L_LVL; ++l) {
-        const float* J = C + JOFF + (l * K_CH + k) * JSTRIDE;
-        M3 R = joint_rot(J, q[l][k]);
-        V3 pw = vadd(pp, mv(Rp, vload(J + J_PJ)));
-        M3 Rw = mm(Rp, R);
-        int gi = l + 1;
-        for (int s = 0; s < group_size(gi); ++s) {
-          int pidx = group_base(gi) + s * K_CH + k;
-          const float* P = C + POFF + pidx * PSTRIDE;
-          V3 cp = vadd(pw, mv(Rw, vload(P + P_OFF)));
-          make_plane(A, e, P, cp.x, cp.y, r0f, c0f, plane[pidx]);
-        }
-        Rp = Rw;
-        pp = pw;
+  for (int m = 0; m < JPL; ++m) {
+    const int j = lane + m * G_LANES;
+    if (j > NJ) break;
+    V3 fl = v3(0.f, 0.f, 0.f), nl = v3(0.f, 0.f, 0.f);
+    M3 Rw;
+    V3 w, v;
+    float par[10];
+    if (j == NJ) {
+      for (int s = 0; s < S_BASE; ++s) {
+        fl = vadd(fl, vload(sh.pt[s]));
+        nl = vadd(nl, vload(sh.pt[s] + 3));
       }
+      Rw = quat_to_matrix(me.qt); w = base_w(me); v = base_v(me);
+      for (int i = 0; i < 10; ++i) par[i] = A.lp_base[i * n + e];
+    } else {
+      const int l = j / K_CH, k = j % K_CH;
+      const int gb = group_base(l + 1), gs = group_size(l + 1);
+      for (int s = 0; s < gs; ++s) {
+        const float* pt = sh.pt[gb + s * K_CH + k];
+        fl = vadd(fl, vload(pt));
+        nl = vadd(nl, vload(pt + 3));
+      }
+      const Frame& f = sh.fr[j];
+      Rw = mload(f.R); w = vload(f.w); v = vload(f.v);
+      for (int i = 0; i < 10; ++i)
+        par[i] = A.lp_lvl[((l * 10 + i) * K_CH + k) * n + e];
+    }
+    M3 IA, IB, IC;
+    V3 pn, pf;
+    pass1(par, Rw, w, v, g, fl, nl, &IA, &IB, &IC, &pn, &pf);
+    if (j == NJ) {
+      mstore(sh.base + AB_A, IA); mstore(sh.base + AB_B, IB);
+      mstore(sh.base + AB_C, IC);
+      vstore(sh.base + AB_N, pn); vstore(sh.base + AB_F, pf);
+    } else {
+      vstore(sh.lk[j], pn); vstore(sh.lk[j] + 3, pf);
+      for (int i = 0; i < 10; ++i) sh.lk[j][6 + i] = par[i];
+    }
+  }
+  if (!last) return;
+  // per body, in the order of the points: the base group, then chain by
+  // chain from the hip down (padding points report nothing)
+  for (int m = 0; m < BPL; ++m) {
+    const int b = lane + m * G_LANES;
+    if (b >= NB) break;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    for (int s = 0; s < S_BASE; ++s) {
+      if ((int)C[POFF + s * PSTRIDE + P_BODY] != b) continue;
+      s0 += sh.pt[s][0]; s1 += sh.pt[s][1]; s2 += sh.pt[s][2];
+    }
+    for (int k = 0; k < K_CH; ++k)
+      for (int l = 0; l < L_LVL; ++l)
+        for (int s = 0; s < group_size(l + 1); ++s) {
+          const int pidx = group_base(l + 1) + s * K_CH + k;
+          const float* P = C + POFF + pidx * PSTRIDE;
+          if (P[P_ACT] == 0.f || (int)P[P_BODY] != b) continue;
+          s0 += sh.pt[pidx][0]; s1 += sh.pt[pidx][1]; s2 += sh.pt[pidx][2];
+        }
+    if (valid) {
+      A.body_f_o[(0 * NB + b) * n + e] = s0;
+      A.body_f_o[(1 * NB + b) * n + e] = s1;
+      A.body_f_o[(2 * NB + b) * n + e] = s2;
+    }
+  }
+}
+
+// (d, e) chain k on lane k: joint torques, then ABA pass 2 tips -> base;
+// the chain's contribution to the base into the record
+HD void phase_pass2(const Args& A, Lane& me, EnvShared& sh, int lane) {
+  if (lane >= K_CH) return;
+  const int k = lane;
+  const float* C = A.cst;
+  float tau_tot[L_LVL], imp[L_LVL];
+  UNROLL
+  for (int l = 0; l < L_LVL; ++l) {
+    // PD (or the held torque) + limit spring (+ URDF damping)
+    const float* J = C + JOFF + (l * K_CH + k) * JSTRIDE;
+    float qv = me.q[l], qdv = me.qd[l];
+    float tau_raw = A.torque
+        ? me.tgt[l] : J[J_KP] * (me.tgt[l] - qv) - J[J_KD] * qdv;
+    float tau = clampf(tau_raw, -J[J_EFF], J[J_EFF]);
+    me.tau[l] = tau;
+    float over = fmaxf(qv - J[J_HI], 0.f);
+    float under = fmaxf(J[J_LO] - qv, 0.f);
+    float active = (over > 0.f || under > 0.f) ? 1.f : 0.f;
+    float tau_lim = C[C_LIM_K] * (under - over) - C[C_LIM_D] * active * qdv;
+    float tt = tau + tau_lim;
+    if (C[C_HAS_DAMP] != 0.f) tt = tt - J[J_DAMP] * qdv;
+    tau_tot[l] = tt;
+    imp[l] = J[J_IMP] + C[C_LIM_EXTRA] * active;
+  }
+  // the child link's articulated inertia and bias, seen from its parent
+  M3 cA, cB, cC;
+  V3 cn = v3(0.f, 0.f, 0.f), cf = cn;
+  UNROLL
+  for (int l = L_LVL - 1; l >= 0; --l) {
+    const int j = l * K_CH + k;
+    const float* J = C + JOFF + j * JSTRIDE;
+    V3 ax = vload(J + J_AX);
+    V3 pj = vload(J + J_PJ);
+    const float* lk = sh.lk[j];
+    M3 IAa, IAb, IAc;
+    inertia_blocks(lk + 6, &IAa, &IAb, &IAc);
+    V3 pAn = vload(lk), pAf = vload(lk + 3);
+    if (l < L_LVL - 1) {
+      IAa = madd(IAa, cA); IAb = madd(IAb, cB); IAc = madd(IAc, cC);
+      pAn = vadd(pAn, cn); pAf = vadd(pAf, cf);
+    }
+    const Frame& fr = sh.fr[j];
+    V3 Sqd = vscale(ax, me.qd[l]);
+    V3 ca = vcross(vload(fr.w), Sqd);
+    V3 cl = vcross(vload(fr.v), Sqd);
+    V3 Ua = mv(IAa, ax);
+    V3 Ul = mtv(IAb, ax);
+    float D = vdot(ax, Ua) + J[J_ARM] + imp[l];
+    float u = tau_tot[l] - vdot(ax, pAn);
+    float di = 1.0f / D;
+    float* js = sh.jt[j];
+    vstore(js, Ua); vstore(js + 3, Ul); vstore(js + 6, ca); vstore(js + 9, cl);
+    js[12] = di; js[13] = u;
+
+    M3 Ia_A = msub(IAa, outer_sym(Ua, di));
+    M3 Ia_B = msub(IAb, outer_scaled(Ua, Ul, di));
+    M3 Ia_C = msub(IAc, outer_sym(Ul, di));
+    float du = di * u;
+    V3 pa_n = vadd(vadd(vadd(pAn, mv(Ia_A, ca)), mv(Ia_B, cl)),
+                   vscale(Ua, du));
+    V3 pa_f = vadd(vadd(vadd(pAf, mtv(Ia_B, ca)), mv(Ia_C, cl)),
+                   vscale(Ul, du));
+    const M3 R = mload(sh.Rl[j]);
+    M3 RA = congruence_sym(R, Ia_A);
+    M3 RB = mm(R, mmt(Ia_B, R));
+    M3 RC = congruence_sym(R, Ia_C);
+    M3 RBp = mm_skew(RB, pj);
+    M3 pRC = skew_mm(pj, RC);
+    cA = msub(msub(msub(RA, RBp), mtrans(RBp)),
+              skew_mm(pj, mm_skew(RC, pj)));
+    cB = madd(RB, pRC);
+    cC = RC;
+    cf = mv(R, pa_f);
+    cn = vadd(mv(R, pa_n), vcross(pj, cf));
+  }
+  float* cb = sh.cb[k];
+  mstore(cb + AB_A, cA); mstore(cb + AB_B, cB); mstore(cb + AB_C, cC);
+  vstore(cb + AB_N, cn); vstore(cb + AB_F, cf);
+}
+
+// (f, g) every lane: the base sums and the 6x6 solve; chain k's pass 3 and
+// joint integration on lane k; the base integration on every lane
+HD void phase_solve(const Args& A, Lane& me, EnvShared& sh, int lane) {
+  const float* C = A.cst;
+  const float dt = C[C_DT];
+  M3 bA = mload(sh.base + AB_A), bB = mload(sh.base + AB_B);
+  M3 bC = mload(sh.base + AB_C);
+  V3 bpn = vload(sh.base + AB_N), bpf = vload(sh.base + AB_F);
+  for (int k = 0; k < K_CH; ++k) {
+    const float* cb = sh.cb[k];
+    bA = madd(bA, mload(cb + AB_A));
+    bB = madd(bB, mload(cb + AB_B));
+    bC = madd(bC, mload(cb + AB_C));
+    bpn = vadd(bpn, vload(cb + AB_N));
+    bpf = vadd(bpf, vload(cb + AB_F));
+  }
+  V3 a0a, a0l;
+  solve66_sym(bA, bB, bC, vneg(bpn), vneg(bpf), &a0a, &a0l);
+
+  if (lane < K_CH) {
+    const int k = lane;
+    V3 aa = a0a, al = a0l;
+    UNROLL
+    for (int l = 0; l < L_LVL; ++l) {
+      const int j = l * K_CH + k;
+      const float* J = C + JOFF + j * JSTRIDE;
+      const float* js = sh.jt[j];
+      const M3 R = mload(sh.Rl[j]);
+      V3 pj = vload(J + J_PJ);
+      V3 ax = vload(J + J_AX);
+      V3 ap_ang = vadd(mtv(R, aa), vload(js + 6));
+      V3 ap_lin = vadd(mtv(R, vadd(al, vcross(aa, pj))), vload(js + 9));
+      float qdd = js[12] * (js[13] - vdot(vload(js), ap_ang)
+                            - vdot(vload(js + 3), ap_lin));
+      aa = vadd(ap_ang, vscale(ax, qdd));
+      al = ap_lin;
+      float cap = J[J_QDCAP];
+      float qdn = clampf(me.qd[l] + dt * qdd, -cap, cap);
+      float qn = me.q[l] + dt * qdn;
+      float lo = J[J_LO], hi = J[J_HI];
+      if (qn > hi && qdn > 0.f) qdn = 0.f;
+      if (qn < lo && qdn < 0.f) qdn = 0.f;
+      me.q[l] = clampf(qn, lo, hi);
+      me.qd[l] = qdn;
     }
   }
 
-  float bf[NB1][3];
+  float* vel = me.vel;
+  float* qt = me.qt;
+  float ac = C[C_ANG_CAP], lc = C[C_LIN_CAP];
+  vel[0] = clampf(vel[0] + dt * a0a.x, -ac, ac);
+  vel[1] = clampf(vel[1] + dt * a0a.y, -ac, ac);
+  vel[2] = clampf(vel[2] + dt * a0a.z, -ac, ac);
+  vel[3] = clampf(vel[3] + dt * a0l.x, -lc, lc);
+  vel[4] = clampf(vel[4] + dt * a0l.y, -lc, lc);
+  vel[5] = clampf(vel[5] + dt * a0l.z, -lc, lc);
+  V3 qv = v3(qt[0], qt[1], qt[2]);
+  V3 vb = v3(vel[3], vel[4], vel[5]);
+  V3 t = vscale(vcross(qv, vb), 2.f);
+  V3 rot = vadd(vadd(vb, vscale(t, qt[3])), vcross(qv, t));
+  me.pos[0] = me.pos[0] + dt * rot.x;
+  me.pos[1] = me.pos[1] + dt * rot.y;
+  me.pos[2] = me.pos[2] + dt * rot.z;
+  float hd = C[C_HALF_DT];
+  float bx = vel[0] * hd, by = vel[1] * hd, bz = vel[2] * hd, bw = 1.f;
+  float ax_ = qt[0], ay = qt[1], az = qt[2], aw = qt[3];
+  float nq0 = aw * bx + ax_ * bw + ay * bz - az * by;
+  float nq1 = aw * by - ax_ * bz + ay * bw + az * bx;
+  float nq2 = aw * bz + ax_ * by - ay * bx + az * bw;
+  float nq3 = aw * bw - ax_ * bx - ay * by - az * bz;
+  float ss = nq0 * nq0 + nq1 * nq1 + nq2 * nq2 + nq3 * nq3;
+  float inv = 1.f / sqrtf(fmaxf(ss, 1e-18f));
+  qt[0] = nq0 * inv; qt[1] = nq1 * inv; qt[2] = nq2 * inv;
+  qt[3] = nq3 * inv;
+}
+
+template <bool WARM>
+HD void lane_store(const Args& A, const Lane& me, int lane, bool valid) {
+  if (!valid) return;
+  const int n = A.n, e = me.e;
+  if (lane == 0) {
+    for (int i = 0; i < 3; ++i) A.pos_o[i * n + e] = me.pos[i];
+    for (int i = 0; i < 4; ++i) A.quat_o[i * n + e] = me.qt[i];
+    for (int i = 0; i < 6; ++i) A.vel_o[i * n + e] = me.vel[i];
+  }
+  if (lane < K_CH) {
+    UNROLL
+    for (int l = 0; l < L_LVL; ++l) {
+      const int idx = (l * K_CH + lane) * n + e;
+      A.q_o[idx] = me.q[l];
+      A.qd_o[idx] = me.qd[l];
+      A.tau_o[idx] = me.tau[l];
+    }
+  }
+  if (WARM) {
+    const size_t nn = (size_t)n;
+    UNROLL
+    for (int i = 0; i < PPL; ++i) {
+      const int pidx = lane + i * G_LANES;
+      if (pidx >= NPTS) continue;
+      A.anc_o[(size_t)pidx * nn + e] = me.anc[i][0];
+      A.anc_o[(size_t)(NPTS + pidx) * nn + e] = me.anc[i][1];
+      A.anc_o[(size_t)(2 * NPTS + pidx) * nn + e] = me.anc[i][2];
+    }
+  }
+}
+
+// ------------------------------------------------------------- per env
+// PHASE(call) runs `call` on every lane of the env's group, then the group
+// waits for all of its lanes. On the card a lane is a thread (`lanes`
+// holds its one Lane) and the wait a warp barrier; in the host build a
+// loop over the G lanes stands in for them, in lane order.
+#if defined(__CUDACC__)
+#define GROUP_FN __device__ __forceinline__
+#define GROUP_LOOP 1
+#define GROUP_SYNC() __syncwarp()
+#else
+#define GROUP_FN static inline
+#define GROUP_LOOP G_LANES
+#define GROUP_SYNC()
+#endif
+#define PHASE(call)                                       \
+  do {                                                    \
+    for (int i_ = 0; i_ < GROUP_LOOP; ++i_) {             \
+      Lane& me = lanes[i_];                               \
+      const int lane = lane0 + i_;                        \
+      call;                                               \
+    }                                                     \
+    GROUP_SYNC();                                         \
+  } while (0)
+
+// env `e` (clamped to n - 1 past the end, where `valid` is false and
+// nothing is written) on lanes lane0 .. lane0 + GROUP_LOOP - 1
+template <bool WARM>
+GROUP_FN void run_env(const Args& A, int e, bool valid, EnvShared& sh, Lane* lanes,
+                int lane0) {
+  PHASE(lane_init<WARM>(A, me, e, lane));
   const int n_sub = A.decimation * A.substeps;
   for (int it = 0; it < n_sub; ++it) {
-    for (int b = 0; b < NB; ++b) bf[b][0] = bf[b][1] = bf[b][2] = 0.f;
-    const bool resample = A.plane_per_dt && (it % A.substeps == 0);
-    // anchors: the caller's at the first substep, then the ones the
-    // previous substep wrote
-    const float* anc_src = it == 0 ? A.anc : A.anc_o;
-    M3 R0 = quat_to_matrix(qt);
-    V3 p0 = vload(pos);
-    V3 w0 = v3(vel[0], vel[1], vel[2]);
-    V3 v0 = v3(vel[3], vel[4], vel[5]);
-
-    // ---- base point group -> base wrench ----
-    V3 f_base = v3(0.f, 0.f, 0.f), n_base = v3(0.f, 0.f, 0.f);
-    for (int s = 0; s < S_BASE; ++s) {
-      const float* P = C + POFF + s * PSTRIDE;
-      V3 off = vload(P + P_OFF);
-      V3 pp = vadd(p0, mv(R0, off));
-      V3 pv = mv(R0, vadd(v0, vcross(w0, off)));
-      if (resample) make_plane(A, e, P, pp.x, pp.y, r0f, c0f, plane[s]);
-      V3 f = point_force<WARM>(A, anc_src, e, s, P, plane[s], pp, pv,
-                               mu_env);
-      f_base = vadd(f_base, f);
-      n_base = vadd(n_base, vcross(vsub(pp, p0), f));
-      int b = (int)P[P_BODY];
-      bf[b][0] += f.x; bf[b][1] += f.y; bf[b][2] += f.z;
-    }
-    M3 bA, bB, bC;
-    V3 bpn, bpf;
-    pass1(lpb, R0, w0, v0, g, f_base, n_base, &bA, &bB, &bC, &bpn, &bpf);
-
-    // ---- per chain: FK, contacts, pass 1, pass 2 into the base ----
-    Joint3 jt[K_CH][L_LVL];
-    float tau_tot[L_LVL];
-    for (int k = 0; k < K_CH; ++k) {
-      M3 Rw[L_LVL], Rl[L_LVL];
-      V3 pw[L_LVL], wl[L_LVL], vl[L_LVL];
-      M3 IAa[L_LVL], IAb[L_LVL], IAc[L_LVL];
-      V3 pAn[L_LVL], pAf[L_LVL];
-      float imp[L_LVL];
-      for (int l = 0; l < L_LVL; ++l) {
-        const float* J = C + JOFF + (l * K_CH + k) * JSTRIDE;
-        M3 Rp = l == 0 ? R0 : Rw[l - 1];
-        V3 pp = l == 0 ? p0 : pw[l - 1];
-        V3 wp = l == 0 ? w0 : wl[l - 1];
-        V3 vp = l == 0 ? v0 : vl[l - 1];
-        V3 pj = vload(J + J_PJ);
-        V3 ax = vload(J + J_AX);
-        M3 R = joint_rot(J, q[l][k]);
-        Rl[l] = R;
-        Rw[l] = mm(Rp, R);
-        pw[l] = vadd(pp, mv(Rp, pj));
-        wl[l] = vadd(mtv(R, wp), vscale(ax, qd[l][k]));
-        vl[l] = mtv(R, vadd(vp, vcross(wp, pj)));
-
-        // contacts of this link
-        V3 fl = v3(0.f, 0.f, 0.f), nl = v3(0.f, 0.f, 0.f);
-        int gi = l + 1;
-        for (int s = 0; s < group_size(gi); ++s) {
-          int pidx = group_base(gi) + s * K_CH + k;
-          const float* P = C + POFF + pidx * PSTRIDE;
-          V3 off = vload(P + P_OFF);
-          V3 cp = vadd(pw[l], mv(Rw[l], off));
-          V3 cv = mv(Rw[l], vadd(vl[l], vcross(wl[l], off)));
-          if (resample)
-            make_plane(A, e, P, cp.x, cp.y, r0f, c0f, plane[pidx]);
-          V3 f = point_force<WARM>(A, anc_src, e, pidx, P, plane[pidx], cp,
-                                   cv, mu_env);
-          fl = vadd(fl, f);
-          nl = vadd(nl, vcross(vsub(cp, pw[l]), f));
-          if (P[P_ACT] != 0.f) {
-            int b = (int)P[P_BODY];
-            bf[b][0] += f.x; bf[b][1] += f.y; bf[b][2] += f.z;
-          }
-        }
-
-        // joint torque: PD (or the held torque) + limit spring (+ URDF
-        // damping)
-        float qv = q[l][k], qdv = qd[l][k];
-        float tau_raw = A.torque
-            ? tgt[l][k] : J[J_KP] * (tgt[l][k] - qv) - J[J_KD] * qdv;
-        float tau = clampf(tau_raw, -J[J_EFF], J[J_EFF]);
-        tau_pd[l][k] = tau;
-        float over = fmaxf(qv - J[J_HI], 0.f);
-        float under = fmaxf(J[J_LO] - qv, 0.f);
-        float active = (over > 0.f || under > 0.f) ? 1.f : 0.f;
-        float tau_lim = C[C_LIM_K] * (under - over)
-                      - C[C_LIM_D] * active * qdv;
-        float tt = tau + tau_lim;
-        if (C[C_HAS_DAMP] != 0.f) tt = tt - J[J_DAMP] * qdv;
-        tau_tot[l] = tt;
-        imp[l] = J[J_IMP] + C[C_LIM_EXTRA] * active;
-
-        float par[10];
-        for (int i = 0; i < 10; ++i)
-          par[i] = A.lp_lvl[((l * 10 + i) * K_CH + k) * n + e];
-        pass1(par, Rw[l], wl[l], vl[l], g, fl, nl, &IAa[l], &IAb[l],
-              &IAc[l], &pAn[l], &pAf[l]);
-      }
-
-      // pass 2: tips -> base
-      for (int l = L_LVL - 1; l >= 0; --l) {
-        const float* J = C + JOFF + (l * K_CH + k) * JSTRIDE;
-        V3 ax = vload(J + J_AX);
-        V3 pj = vload(J + J_PJ);
-        V3 Sqd = vscale(ax, qd[l][k]);
-        V3 ca = vcross(wl[l], Sqd);
-        V3 cl = vcross(vl[l], Sqd);
-        V3 Ua = mv(IAa[l], ax);
-        V3 Ul = mtv(IAb[l], ax);
-        float D = vdot(ax, Ua) + J[J_ARM] + imp[l];
-        float u = tau_tot[l] - vdot(ax, pAn[l]);
-        float di = 1.0f / D;
-        Joint3& js = jt[k][l];
-        js.R = Rl[l]; js.Ua = Ua; js.Ul = Ul; js.ca = ca; js.cl = cl;
-        js.di = di; js.u = u;
-
-        M3 Ia_A = msub(IAa[l], outer_sym(Ua, di));
-        M3 Ia_B = msub(IAb[l], outer_scaled(Ua, Ul, di));
-        M3 Ia_C = msub(IAc[l], outer_sym(Ul, di));
-        float du = di * u;
-        V3 pa_n = vadd(vadd(vadd(pAn[l], mv(Ia_A, ca)), mv(Ia_B, cl)),
-                       vscale(Ua, du));
-        V3 pa_f = vadd(vadd(vadd(pAf[l], mtv(Ia_B, ca)), mv(Ia_C, cl)),
-                       vscale(Ul, du));
-        const M3& R = Rl[l];
-        M3 RA = congruence_sym(R, Ia_A);
-        M3 RB = mm(R, mmt(Ia_B, R));
-        M3 RC = congruence_sym(R, Ia_C);
-        M3 RBp = mm_skew(RB, pj);
-        M3 pRC = skew_mm(pj, RC);
-        M3 A_p = msub(msub(msub(RA, RBp), mtrans(RBp)),
-                      skew_mm(pj, mm_skew(RC, pj)));
-        M3 B_p = madd(RB, pRC);
-        V3 Rf = mv(R, pa_f);
-        V3 n_p = vadd(mv(R, pa_n), vcross(pj, Rf));
-        if (l > 0) {
-          IAa[l - 1] = madd(IAa[l - 1], A_p);
-          IAb[l - 1] = madd(IAb[l - 1], B_p);
-          IAc[l - 1] = madd(IAc[l - 1], RC);
-          pAn[l - 1] = vadd(pAn[l - 1], n_p);
-          pAf[l - 1] = vadd(pAf[l - 1], Rf);
-        } else {
-          bA = madd(bA, A_p);
-          bB = madd(bB, B_p);
-          bC = madd(bC, RC);
-          bpn = vadd(bpn, n_p);
-          bpf = vadd(bpf, Rf);
-        }
-      }
-    }
-
-    // ---- base solve ----
-    V3 a0a, a0l;
-    solve66_sym(bA, bB, bC, vneg(bpn), vneg(bpf), &a0a, &a0l);
-
-    // ---- pass 3 + joint integration ----
-    for (int k = 0; k < K_CH; ++k) {
-      V3 aa = a0a, al = a0l;
-      for (int l = 0; l < L_LVL; ++l) {
-        const float* J = C + JOFF + (l * K_CH + k) * JSTRIDE;
-        const Joint3& js = jt[k][l];
-        V3 pj = vload(J + J_PJ);
-        V3 ax = vload(J + J_AX);
-        V3 ap_ang = vadd(mtv(js.R, aa), js.ca);
-        V3 ap_lin = vadd(mtv(js.R, vadd(al, vcross(aa, pj))), js.cl);
-        float qdd = js.di * (js.u - vdot(js.Ua, ap_ang)
-                             - vdot(js.Ul, ap_lin));
-        aa = vadd(ap_ang, vscale(ax, qdd));
-        al = ap_lin;
-        float cap = J[J_QDCAP];
-        float qdn = clampf(qd[l][k] + dt * qdd, -cap, cap);
-        float qn = q[l][k] + dt * qdn;
-        float lo = J[J_LO], hi = J[J_HI];
-        if (qn > hi && qdn > 0.f) qdn = 0.f;
-        if (qn < lo && qdn < 0.f) qdn = 0.f;
-        q[l][k] = clampf(qn, lo, hi);
-        qd[l][k] = qdn;
-      }
-    }
-
-    // ---- base integration ----
-    float ac = C[C_ANG_CAP], lc = C[C_LIN_CAP];
-    vel[0] = clampf(vel[0] + dt * a0a.x, -ac, ac);
-    vel[1] = clampf(vel[1] + dt * a0a.y, -ac, ac);
-    vel[2] = clampf(vel[2] + dt * a0a.z, -ac, ac);
-    vel[3] = clampf(vel[3] + dt * a0l.x, -lc, lc);
-    vel[4] = clampf(vel[4] + dt * a0l.y, -lc, lc);
-    vel[5] = clampf(vel[5] + dt * a0l.z, -lc, lc);
-    {
-      V3 qv = v3(qt[0], qt[1], qt[2]);
-      V3 vb = v3(vel[3], vel[4], vel[5]);
-      V3 t = vscale(vcross(qv, vb), 2.f);
-      V3 rot = vadd(vadd(vb, vscale(t, qt[3])), vcross(qv, t));
-      pos[0] = pos[0] + dt * rot.x;
-      pos[1] = pos[1] + dt * rot.y;
-      pos[2] = pos[2] + dt * rot.z;
-      float hd = C[C_HALF_DT];
-      float bx = vel[0] * hd, by = vel[1] * hd, bz = vel[2] * hd, bw = 1.f;
-      float ax_ = qt[0], ay = qt[1], az = qt[2], aw = qt[3];
-      float nq0 = aw * bx + ax_ * bw + ay * bz - az * by;
-      float nq1 = aw * by - ax_ * bz + ay * bw + az * bx;
-      float nq2 = aw * bz + ax_ * by - ay * bx + az * bw;
-      float nq3 = aw * bw - ax_ * bx - ay * by - az * bz;
-      float ss = nq0 * nq0 + nq1 * nq1 + nq2 * nq2 + nq3 * nq3;
-      float inv = 1.f / sqrtf(fmaxf(ss, 1e-18f));
-      qt[0] = nq0 * inv; qt[1] = nq1 * inv; qt[2] = nq2 * inv;
-      qt[3] = nq3 * inv;
-    }
+    // the plane: from the first substep's kinematics (the entry state), or
+    // with plane_per_dt from the first substep of every sim dt
+    const bool resample = A.plane_per_dt ? (it % A.substeps == 0) : (it == 0);
+    const bool last = it == n_sub - 1;
+    PHASE(phase_fk(A, me, sh, lane));
+    PHASE(phase_points<WARM>(A, me, sh, lane, resample));
+    PHASE(phase_links(A, me, sh, lane, last, valid));
+    PHASE(phase_pass2(A, me, sh, lane));
+    PHASE(phase_solve(A, me, sh, lane));
   }
-
-  for (int i = 0; i < 3; ++i) A.pos_o[i * n + e] = pos[i];
-  for (int i = 0; i < 4; ++i) A.quat_o[i * n + e] = qt[i];
-  for (int i = 0; i < 6; ++i) A.vel_o[i * n + e] = vel[i];
-  for (int l = 0; l < L_LVL; ++l)
-    for (int k = 0; k < K_CH; ++k) {
-      int idx = (l * K_CH + k) * n + e;
-      A.q_o[idx] = q[l][k];
-      A.qd_o[idx] = qd[l][k];
-      A.tau_o[idx] = tau_pd[l][k];
-    }
-  for (int b = 0; b < NB; ++b)
-    for (int i = 0; i < 3; ++i) A.body_f_o[(i * NB + b) * n + e] = bf[b][i];
+  PHASE(lane_store<WARM>(A, me, lane, valid));
 }
 
 // ------------------------------------------------------------ entry points
 #if defined(__CUDACC__)
 template <bool WARM>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(128)
 chain_step_kernel(Args a) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < a.n) chain_env<WARM>(a, e);
+  extern __shared__ float smem[];
+  EnvShared* sh = reinterpret_cast<EnvShared*>(smem);
+  const int per_block = blockDim.x / G_LANES;
+  const int slot = threadIdx.x / G_LANES;
+  // a warp whose envs all lie past the end leaves as a whole
+  const int warp_first = blockIdx.x * per_block
+                         + (threadIdx.x / 32) * (32 / G_LANES);
+  if (warp_first >= a.n) return;
+  const int e = blockIdx.x * per_block + slot;
+  Lane me;
+  run_env<WARM>(a, e < a.n ? e : a.n - 1, e < a.n, sh[slot], &me,
+                threadIdx.x % G_LANES);
 }
 #define EXPORT extern "C" __attribute__((visibility("default")))
 #else
 #define EXPORT extern "C"
 #endif
 
+#if defined(__CUDACC__)
+// Warps a block, blocks and shared bytes of a launch for n envs: up to 4
+// warps a block, fewer where their records would pass 48 KB of shared
+// memory (a block may take more only after an opt-in, made here).
+static int launch_shape(int n, int warm, int* warps, int* blocks,
+                        size_t* smem) {
+  const int per_warp = 32 / G_LANES;
+  const size_t env_bytes = sizeof(EnvShared);
+  int w = 4;
+  while (w > 1 && (size_t)(w * per_warp) * env_bytes > 48 * 1024) --w;
+  const int per_block = w * per_warp;
+  *warps = w;
+  *smem = (size_t)per_block * env_bytes;
+  *blocks = (n + per_block - 1) / per_block;
+  if (*smem > 48 * 1024) {
+    cudaError_t err = warm
+        ? cudaFuncSetAttribute(chain_step_kernel<true>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem)
+        : cudaFuncSetAttribute(chain_step_kernel<false>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+#endif
+
+// out[0]: warps a launch for n envs starts (FLAG_WARM of flags picks the
+// instantiation); out[1]: warps of that launch the current device holds at
+// once (resident blocks per SM x warps a block x SMs), 0 in the host build.
+// chain_kernel.py picks G_LANES by these: the launch should fit one wave.
+// Returns 0 or a CUDA error.
+EXPORT int chain_step_fit(int n, int flags, int* out) {
+  const int per_warp = 32 / G_LANES;
+  out[0] = (n + per_warp - 1) / per_warp;
+  out[1] = 0;
+#if defined(__CUDACC__)
+  const int warm = flags & FLAG_WARM;
+  int warps, blocks, per_sm, dev, sms;
+  size_t smem;
+  int err = launch_shape(n, warm, &warps, &blocks, &smem);
+  if (err != 0) return err;
+  cudaError_t e = warm
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, chain_step_kernel<true>, warps * 32, smem)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, chain_step_kernel<false>, warps * 32, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[1] = per_sm * warps * sms;
+#else
+  (void)flags;
+#endif
+  return 0;
+}
+
 // layout of the model this file is built for:
-// [L, K, NG, S_0..S_{NG-1}, NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS]
+// [L, K, NG, S_0..S_{NG-1}, NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS,
+//  G_LANES, bytes of shared memory per env]
 EXPORT int chain_step_layout(int* out, int cap) {
-  const int rest[] = {NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS};
-  int v[3 + NG + 6] = {L_LVL, K_CH, NG};
+  const int rest[] = {NB, N_CONST, N_SCALAR, JSTRIDE, PSTRIDE, NPTS,
+                      G_LANES, (int)sizeof(EnvShared)};
+  const int n_rest = (int)(sizeof(rest) / sizeof(rest[0]));
+  int v[3 + NG + 8] = {L_LVL, K_CH, NG};
   for (int g = 0; g < NG; ++g) v[3 + g] = group_size(g);
-  for (int i = 0; i < 6; ++i) v[3 + NG + i] = rest[i];
-  const int m = 3 + NG + 6;
+  for (int i = 0; i < n_rest; ++i) v[3 + NG + i] = rest[i];
+  const int m = 3 + NG + n_rest;
   for (int i = 0; i < m && i < cap; ++i) out[i] = v[i];
   return m;
 }
@@ -987,18 +1259,23 @@ EXPORT int chain_step_run(
   a.anc_o = warm ? anc_o : nullptr;
   if (n <= 0) return 0;
 #if defined(__CUDACC__)
-  const int threads = 32;
-  const int blocks = (n + threads - 1) / threads;
+  int warps, blocks;
+  size_t smem;
+  const int err = launch_shape(n, warm, &warps, &blocks, &smem);
+  if (err != 0) return err;
+  cudaStream_t s = (cudaStream_t)stream;
   if (warm)
-    chain_step_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    chain_step_kernel<true><<<blocks, warps * 32, smem, s>>>(a);
   else
-    chain_step_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    chain_step_kernel<false><<<blocks, warps * 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 #else
   (void)stream;
+  EnvShared sh;
+  Lane lanes[G_LANES];
   for (int e = 0; e < n; ++e) {
-    if (warm) chain_env<true>(a, e);
-    else chain_env<false>(a, e);
+    if (warm) run_env<true>(a, e, true, sh, lanes, 0);
+    else run_env<false>(a, e, true, sh, lanes, 0);
   }
   return 0;
 #endif

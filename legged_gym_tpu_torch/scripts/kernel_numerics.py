@@ -6,6 +6,8 @@ for anymal_c_rough, each at its own 4096 envs.
 
     python -m legged_gym_tpu_torch.scripts.kernel_numerics \
         [--task aliengo|cassie|anymal_c_rough]
+    python -m legged_gym_tpu_torch.scripts.kernel_numerics \
+        --sweep [--parent OTHER.cu]
 
 For a fresh reset, the state after the reset step and a settled state
 (30 zero-action steps), it prints per output the max / 99th percentile /
@@ -13,11 +15,18 @@ median over envs of |kernel - plain| and the envs over tolerance, for the
 kernel built with and without fused multiply-add contraction, and for the
 plain version run on the CPU (the spread of the reference itself). With
 ``--seeds N`` it instead sweeps env seeds 0 .. N-1 on the settled state
-(seed_sweep). Also holds the helpers that chip_smoke.py uses.
+(seed_sweep). With ``--sweep`` it times, on the settled state, for K1 (go1
+rough, 1800 and 4096 envs), K4 (aliengo, 4096), K2 (cassie, 4096 and
+1800), K3 + K4 (anymal_c_rough, 4096) and K1 on a1's layout (4096), the
+kernel built with each candidate lane count per env (G_LANES) and, with ``--parent``, another revision of the .cu source
+built by the same wrapper with the same flags, in turns (parent, this
+source, this source, parent); every build is first held against the plain
+version (lane_sweep). Also holds the helpers that chip_smoke.py uses.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -296,6 +305,173 @@ def seed_sweep(task, seeds):
                               for k, v in errs.items()), flush=True)
 
 
+# lane counts per env timed by --sweep, by chain count, and the rows:
+# (task, variant, envs) at each main path's env count, and go1 / cassie at
+# the other one, where the launch's choice of G flips (launch_library)
+SWEEP_LANES = {2: (2, 4, 8, 16), 4: (8, 16, 32)}
+SWEEP_ROWS = (("go1", "K1", 1800), ("go1", "K1", 4096),
+              ("aliengo", "K4", 4096), ("cassie", "K2", 4096),
+              ("cassie", "K2", 1800), ("anymal_c_rough", "K3", 4096),
+              ("a1", "K1", 4096))
+
+
+def ptxas_report(log):
+    """The assembler's register / stack / spill report of a build log, one
+    line per kernel instantiation (``WARM=0``: K1 / K2 / K3 without
+    anchors, ``WARM=1``: with them)."""
+    out, name, props = [], None, []
+    for line in log.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            sym = line.split("Function properties for")[-1].strip()
+            name = ("chain_step_kernel<WARM=1>" if "ILb1E" in sym else
+                    "chain_step_kernel<WARM=0>" if "ILb0E" in sym else sym)
+            props = []
+        elif "spill" in line:
+            props.append(line)
+        elif "registers" in line:
+            regs = line.split("Used", 1)[-1].split(",")[0].strip()
+            out.append(f"{name or 'kernel'}: {regs}, "
+                       + ", ".join(props + [line.split(", ")[-1]]))
+            name, props = None, []
+    return out
+
+
+def sweep_env(task, n):
+    """The env of one sweep row: go1 as rough_cfg, any other task as
+    registered, at n envs."""
+    if task == "go1":
+        cfg = rough_cfg(n)
+    else:
+        cfg, _ = registry.get_cfgs(task)
+        cfg.env.num_envs = n
+    return registry.make_env(cfg=cfg, device="cuda")[0]
+
+
+def lane_sweep(parent=None, reps=200, out_path=None):
+    """Build every candidate G_LANES of each row's layout (and ``parent``,
+    another .cu revision) in one parallel build, hold each build against
+    the plain version on the fresh and the settled state, then time them
+    on the settled state, the kernel alone on buffers prepared once: the
+    sweep, and parent / this / this / parent turns at the G the launch
+    takes (chain_kernel.launch_library). Returns the records (also written
+    as JSON to ``out_path``)."""
+    import json
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    envs = [sweep_env(task, n) for task, _, n in SWEEP_ROWS]
+    builds = {}     # (layout, lanes, source) -> label
+    for env in envs:
+        layout = chain_kernel.model_layout(step_consts(env).cm)
+        for g in SWEEP_LANES[layout[1]]:
+            builds[(layout, g, chain_kernel.SOURCE)] = f"G={g}"
+        if parent:
+            builds[(layout, 1, parent)] = "parent"
+    keys = list(builds)
+    libs = dict(zip(keys, chain_kernel.build_libraries(
+        [k[0] for k in keys], lanes=[k[1] for k in keys],
+        source=[k[2] for k in keys])))
+    records = []
+    for (layout, g, src), lib in libs.items():
+        log = chain_kernel.build_log.get(chain_kernel.library_key(
+            "cuda", chain_kernel.CUDA_NUMERICS, layout, g, src), "")
+        lay = chain_kernel.library_layout(lib)
+        rec = dict(layout=list(layout), build=builds[(layout, g, src)],
+                   G_LANES=lay["G_LANES"],
+                   shared_bytes_per_env=lay["SHARED_PER_ENV"],
+                   ptxas=ptxas_report(log))
+        records.append(rec)
+        print(f"[{layout} {rec['build']}] shared/env "
+              f"{lay['SHARED_PER_ENV']} B; " + " | ".join(rec["ptxas"]),
+              flush=True)
+    for (task, variant, n), env in zip(SWEEP_ROWS, envs):
+        row = f"{task} {n}"
+        cc = step_consts(env)
+        layout = chain_kernel.model_layout(cc.cm)
+        cands = [(builds[k], lib) for k, lib in libs.items()
+                 if k[0] == layout]
+        cv = chain_step.const_tensors(cc, "cuda")
+        table = torch.as_tensor(chain_kernel.const_table(cc), device="cuda")
+        state = env.initial_state()
+        zeros = torch.zeros((env.num_envs, env.num_actions), device="cuda")
+        chosen = "G=%d" % chain_kernel.library_layout(
+            chain_kernel.launch_library(layout, n, env._warm_start)
+        )["G_LANES"]
+        share = SWITCH_ENVS_SHARE if variant in ("K2", "K3") else 0.0
+        rows = {label: dict(row=row, variant=variant, build=label)
+                for label, _ in cands}
+        for label_s, steps in (("fresh", 0), ("settled", 30)):
+            for _ in range(steps):
+                state, _ = env.step(state, zeros)
+            args = kernel_args(env, state)
+            anchors = state.contact_ws
+            settled = steps > 0
+            ref = chain_step.run_decimation_chain(cc, *args, cv=cv,
+                                                  anchors=anchors)
+            ref_cpu = plain_on_cpu(cc, args, anchors) \
+                if settled and share else None
+            for label, lib in cands:
+                out = chain_kernel.launch(lib, cc, args, table, anchors)
+                torch.cuda.synchronize()
+                over = envs_over(ref, out, settled, ref_cpu)
+                errs = {k: float(v.max())
+                        for k, v in per_env_errors(ref, out).items()}
+                entry = dict(envs_over=len(over),
+                             allowed=int(share * env.num_envs)
+                             if settled else 0,
+                             max_err=errs)
+                if anchors is not None:
+                    err, _, n_diff = anchor_errors(ref[7], out[7])
+                    entry.update(anchor_err=err, anchor_live_diff=n_diff)
+                rows[label][label_s] = entry
+                print(f"[{row} {label} {label_s}] envs over "
+                      f"{len(over)} (allowed {entry['allowed']}), "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                      + (f", anchors {entry['anchor_err']:.2e} m / "
+                         f"{entry['anchor_live_diff']} live diff"
+                         if anchors is not None else ""), flush=True)
+        # settled state: the sweep (the kernel alone and through the
+        # wrapper), then the turns
+        alone = {label: chain_kernel.bind_launch(lib, cc, args, table,
+                                                 anchors)[0]
+                 for label, lib in cands}
+        for label, lib in cands:
+            rec = rows[label]
+            rec["ms"] = cuda_ms(alone[label], reps)
+            rec["wrapper_ms"] = cuda_ms(lambda: chain_kernel.launch(
+                lib, cc, args, table, anchors), reps)
+            print(f"[{row} {label}] kernel alone {rec['ms']:.4f} "
+                  f"ms/launch, through the wrapper {rec['wrapper_ms']:.4f} "
+                  f"[{smi}]", flush=True)
+        fastest = min(rows, key=lambda lb: rows[lb]["ms"]
+                      if lb != "parent" else float("inf"))
+        print(f"[{row}] the launch takes {chosen}; fastest {fastest}",
+              flush=True)
+        records += list(rows.values())
+        if parent:
+            turns = [(label, cuda_ms(alone[label], reps))
+                     for label in ("parent", chosen, chosen, "parent")]
+            new = [t for lb, t in turns if lb != "parent"]
+            old = [t for lb, t in turns if lb == "parent"]
+            print(f"[{row} {variant} turns, kernel alone] " + ", ".join(
+                f"{lb} {t:.4f}" for lb, t in turns)
+                + f" ms/launch: parent / this = "
+                f"{sum(old) / sum(new):.2f}x [{smi}]", flush=True)
+            records.append(dict(row=row, variant=variant, turns=turns,
+                                chosen=chosen, fastest=fastest,
+                                speedup=sum(old) / sum(new), card=smi))
+    if out_path:
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(dict(card=smi, reps=reps, records=records), f,
+                      indent=1)
+    return records
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -306,8 +482,18 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, default=0,
                     help="instead: the settled-state comparison for env "
                          "seeds 0 .. SEEDS-1 (seed_sweep)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="instead: time each task's candidate lane counts "
+                         "per env (lane_sweep)")
+    ap.add_argument("--parent", default=None,
+                    help="with --sweep: another revision of the .cu "
+                         "source, timed in turns against this one")
+    ap.add_argument("--out", default="chiprun_out/lane_sweep.json",
+                    help="with --sweep: where the records go (JSON)")
     ns = ap.parse_args(argv)
     task = ns.task
+    if ns.sweep:
+        return lane_sweep(ns.parent, out_path=ns.out)
     if ns.seeds:
         return seed_sweep(task, range(ns.seeds))
     if task == "go1":
@@ -321,12 +507,17 @@ def main(argv=None):
     layout = chain_kernel.model_layout(cc.cm)
     cv = chain_step.const_tensors(cc, "cuda")
     table = torch.as_tensor(chain_kernel.const_table(cc), device="cuda")
-    libs = {"no-fma": chain_kernel.load_library("cuda", layout=layout),
+    no_fma = chain_kernel.launch_library(layout, env.num_envs,
+                                         env._warm_start)
+    lanes = chain_kernel.library_layout(no_fma)["G_LANES"]
+    libs = {"no-fma": no_fma,
             "fma": chain_kernel.load_library("cuda", numerics=(),
-                                             layout=layout)}
-    for line in chain_kernel.build_log.get("cuda", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+                                             layout=layout, lanes=lanes)}
+    print(f"G_LANES {lanes}")
+    for line in ptxas_report(chain_kernel.build_log.get(
+            chain_kernel.library_key("cuda", chain_kernel.CUDA_NUMERICS,
+                                     layout, lanes), "")):
+        print(f"ptxas: {line}")
     state = env.initial_state()
     zeros = torch.zeros((env.num_envs, env.num_actions), device="cuda")
     for label, steps in (("fresh reset", 0), ("reset step", 1),

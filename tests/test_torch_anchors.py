@@ -29,6 +29,10 @@ from legged_gym_tpu_torch.scripts.kernel_numerics import (anchor_errors,
                                                         per_env_errors,
                                                         tolerances)
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 8
 LIVE = 1e5      # anchors below this are live, at 1e6 they are the sentinel
 # probed apparent masses: float32 ABA summed in another order
@@ -57,6 +61,18 @@ def envs():
 @pytest.fixture(scope="module")
 def jax_step(envs):
     return jax.jit(envs[0].step)
+
+
+@pytest.fixture(scope="module")
+def settled_jax_state(envs, jax_step):
+    """The JAX env's state after a reset and 25 zero-action steps, shared
+    by the tests that start from a settled stance."""
+    jenv = envs[0]
+    zeros_j = jnp.zeros((N, jenv.num_actions))
+    state = _jax_reset(jenv, jax_step, 0)
+    for _ in range(25):
+        state, _ = jax_step(state, zeros_j)
+    return state
 
 
 @pytest.fixture(scope="module")
@@ -170,11 +186,10 @@ def test_aliengo_chain_constants(envs):
                                rtol=1e-7)
 
 
-def test_variant_check_accepts_k1_k4_refuses_k2_k3(envs):
-    """Named for what it once held, a refusal of K2 / K3; every variant is
-    ported now, so the check accepts them all (K4 combined with K2 and K3
+def test_variant_check_accepts_every_variant_with_anchors(envs):
+    """The check accepts every variant (K4 combined with K2 and K3
     included), names the variant each selects, and the wrapper runs it with
-    anchors in and out. Only a configuration that makes no sense is
+    anchors in and out; only a configuration that makes no sense is
     refused. (tests/test_torch_trimesh.py and test_torch_sea.py hold these
     combinations against the JAX package and the kernel's host build.)"""
     tenv = envs[1]
@@ -263,17 +278,17 @@ def test_plain_step_with_anchors_matches_jax_settled(envs, jax_run):
     assert not torch.allclose(k1[2], out[2], atol=1e-6)
 
 
-def test_host_build_of_k4_matches_plain(envs):
+def test_host_build_of_k4_matches_plain(envs, settled_jax_state):
     """The kernel source compiled with the host C++ compiler for aliengo's
-    layout (-DS_L0=2), anchors in and out, against the plain
-    version."""
+    layout (-DS_L0=2), anchors in and out, against the plain version, on a
+    fresh reset and on the settled state."""
     if shutil.which("c++") is None and shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
     tenv = envs[1]
     cc = tenv.chain_engine.cc
-    state = tenv.initial_state()
-    zeros = torch.zeros((N, tenv.num_actions))
     for settled in (False, True):
+        state = env_state_from_jax(_np_tree(settled_jax_state)) \
+            if settled else tenv.initial_state()
         args = kernel_args(tenv, state)
         ref = chain_step.run_decimation_chain(cc, *args,
                                               anchors=state.contact_ws)
@@ -293,8 +308,6 @@ def test_host_build_of_k4_matches_plain(envs):
         k1_ref = chain_step.run_decimation_chain(cc, *args)
         assert len(k1) == 7
         torch.testing.assert_close(k1[3], k1_ref[3], atol=1e-4, rtol=0)
-        for _ in range(30):
-            state, _ = tenv.step(state, zeros)
     layout = chain_kernel.library_layout(chain_kernel.load_library(
         "host", layout=chain_kernel.model_layout(cc.cm)))
     assert layout["S"] == (8, 2, 8, 9) and layout["NPTS"] == 84
@@ -339,12 +352,11 @@ def _jax_reset(jenv, jax_step, seed):
     return jax_step(state, jnp.zeros((N, jenv.num_actions)))[0]
 
 
-def test_env_one_step_from_settled_jax_state(envs, jax_step):
+def test_env_one_step_from_settled_jax_state(envs, jax_step,
+                                            settled_jax_state):
     jenv, tenv = envs
     zeros_j = jnp.zeros((N, jenv.num_actions))
-    state = _jax_reset(jenv, jax_step, 0)
-    for _ in range(25):
-        state, _ = jax_step(state, zeros_j)
+    state = settled_jax_state
     s_j, tr_j = jax_step(state, zeros_j)
     assert not np.asarray(tr_j.done).any()
     s0 = env_state_from_jax(_np_tree(state))

@@ -19,6 +19,10 @@ from legged_gym_tpu_torch.interop import env_state_from_jax
 from legged_gym_tpu_torch.terrain import heightfield as torch_hf
 from legged_gym_tpu_torch.terrain.terrain import Terrain as TorchTerrain
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 8
 
 

@@ -33,6 +33,10 @@ from legged_gym_tpu_torch.physics import params
 from legged_gym_tpu_torch.physics.state import PhysicsState
 from legged_gym_tpu_torch.rl import networks
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 8
 RNG = np.random.default_rng(1234)
 PKG_DIR = os.path.dirname(legged_gym_tpu_torch.__file__)

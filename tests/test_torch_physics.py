@@ -21,6 +21,10 @@ from legged_gym_tpu_torch import registry as torch_registry
 from legged_gym_tpu_torch.physics import chain_step, chain_kernel
 from legged_gym_tpu_torch.physics.params import link_params_from_scales
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 8
 # keys of const_values that derive from the numeric apparent-mass probe
 # (float32 ABA summed in another order): held at rtol 1e-4

@@ -35,6 +35,10 @@ from legged_gym_tpu_torch.rl import ppo
 from legged_gym_tpu_torch.rl.runner import PPORunner, fetch_metrics
 from legged_gym_tpu_torch.utils import helpers
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ENVS, T_STEPS, MAX_LEN = 16, 16, 10
 
@@ -483,6 +487,9 @@ def test_get_args_flags():
 def _run_train(argv, cwd=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    # one intra-op thread: the tensors are tiny, and the test workers
+    # already share the cores
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run(
         [sys.executable, "-m", "legged_gym_tpu_torch.scripts.train"] + argv,
         capture_output=True, text=True, env=env, timeout=300, cwd=cwd)
@@ -496,14 +503,26 @@ def test_train_cli_help_exits_zero():
 
 
 @pytest.mark.parametrize("task", ["go1", "aliengo"])
-def test_train_cli_two_iterations_on_cpu(task):
-    """scripts.train end to end on the CPU: two iterations at 8 envs, the
+def test_train_cli_two_iterations_on_cpu(task, monkeypatch):
+    """scripts.train's main end to end on the CPU, in this process: two
+    iterations at 8 envs of the task's config with a 4-step horizon, the
     metrics it logged finite, the last checkpoint written."""
+    from legged_gym_tpu_torch.scripts import train as train_script
+
+    get_cfgs = registry.get_cfgs
+
+    def short_horizon(name):
+        env_cfg, train_cfg = get_cfgs(name)
+        train_cfg.runner.num_steps_per_env = 4
+        return env_cfg, train_cfg
+
+    monkeypatch.setattr(registry, "get_cfgs", short_horizon)
     exp = f"pytest_{task}_{os.getpid()}"
-    r = _run_train(["--task", task, "--num_envs", "8", "--device", "cpu",
-                    "--max_iterations", "2", "--experiment_name", exp,
-                    "--run_name", "cli", "--headless"])
-    assert r.returncode == 0, r.stderr[-3000:]
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--task", task, "--num_envs", "8", "--device", "cpu",
+        "--max_iterations", "2", "--experiment_name", exp, "--run_name",
+        "cli", "--headless"])
+    train_script.main()
     root = os.path.join(helpers.LOG_ROOT, exp)
     try:
         runs = os.listdir(root)

@@ -35,6 +35,10 @@ from legged_gym_tpu_torch.scripts.kernel_numerics import (anchor_errors,
                                                         per_env_errors,
                                                         tolerances)
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 4
 LIVE = 1e5      # anchors below this are live, at 1e6 they are the sentinel
 # probed apparent masses: float32 ABA summed in another order
@@ -86,6 +90,18 @@ def rough_settled(rough):
     for _ in range(25):
         state, tr = tenv.step(state, zeros)
         assert not tr.done.any()
+    return state
+
+
+@pytest.fixture(scope="module")
+def flat_settled(flat):
+    """anymal_c on the plane after 30 zero-action steps of the port's env
+    from its initial state, shared by the host-build cases."""
+    tenv = flat[1]
+    state = tenv.initial_state()
+    zeros = torch.zeros((N, tenv.num_actions))
+    for _ in range(30):
+        state, _ = tenv.step(state, zeros)
     return state
 
 
@@ -297,7 +313,7 @@ def test_plain_k3_matches_jax_and_pallas_interpret(rough, rough_settled):
 
 @pytest.mark.skipif(not HAS_CXX, reason="no host C++ compiler")
 @pytest.mark.parametrize("anchored", [False, True], ids=["K3", "K3+K4"])
-def test_host_build_of_k3_matches_plain(flat, anchored):
+def test_host_build_of_k3_matches_plain(flat, flat_settled, anchored):
     """The kernel source in torque mode on anymal's layout, with and
     without anchors, on a fresh reset and on a settled state: four
     launches in a row as the SEA path makes them, each launch's state and
@@ -309,9 +325,8 @@ def test_host_build_of_k3_matches_plain(flat, anchored):
     cc = tenv.chain_engine.cc_sea
     if not anchored:
         cc = dataclasses.replace(cc, warm_start=False)
-    state = tenv.initial_state()
-    zeros = torch.zeros((N, tenv.num_actions))
     for settled in (False, True):
+        state = flat_settled if settled else tenv.initial_state()
         args = _sea_args(tenv, state, seed=int(settled))
         anchors = state.contact_ws if anchored else None
         state5 = args[7:]
@@ -331,8 +346,6 @@ def test_host_build_of_k3_matches_plain(flat, anchored):
                 err, _, n_diff = anchor_errors(ref[7], out[7])
                 assert n_diff == 0 and err < 1e-4
                 anchors = ref[7]
-        for _ in range(30):
-            state, _ = tenv.step(state, zeros)
     assert float(ref[6][2].sum()) > 500.0
     lay = chain_kernel.library_layout(chain_kernel.load_library(
         "host", layout=chain_kernel.model_layout(cc.cm)))

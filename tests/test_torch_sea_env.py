@@ -20,6 +20,10 @@ from legged_gym_tpu import registry as jax_registry
 from legged_gym_tpu_torch import registry as torch_registry
 from legged_gym_tpu_torch.interop import anchors_from_jax, env_state_from_jax
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 4
 
 

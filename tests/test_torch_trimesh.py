@@ -35,6 +35,10 @@ from legged_gym_tpu_torch.scripts.kernel_numerics import (kernel_args,
 from legged_gym_tpu_torch.terrain import heightfield as torch_hf
 from legged_gym_tpu_torch.terrain import terrain as torch_terrain
 
+# one intra-op thread: the tensors are a few envs wide and the test
+# workers share the cores (more threads only spin and slow them)
+torch.set_num_threads(1)
+
 N = 4
 # probed apparent masses: float32 ABA summed in another order
 PROBED = ("gme", "gmet", "gimn", "gimt")
@@ -96,6 +100,18 @@ def _settled(jenv, step, seed=0, steps=25):
     for _ in range(steps):
         state, _ = step(state, zeros)
     return state
+
+
+@pytest.fixture(scope="module")
+def cassie_settled(cassie, cassie_step):
+    """The JAX env's state after a reset and 25 zero-action steps, shared
+    by every test that starts from a settled cassie."""
+    return _settled(cassie[0], cassie_step)
+
+
+@pytest.fixture(scope="module")
+def a1_settled(a1, a1_step):
+    return _settled(a1[0], a1_step)
 
 
 # -------------------------------------------------------------- layouts
@@ -315,13 +331,14 @@ def _six(ref, out, atol=5e-3):
 
 @pytest.mark.parametrize("flag", [{}, {"plane_per_step": False}],
                          ids=["wall", "wall+plane_per_dt"])
-def test_plain_k2_matches_jax_and_pallas_interpret(cassie, cassie_step, flag):
+def test_plain_k2_matches_jax_and_pallas_interpret(cassie, cassie_settled,
+                                                   flag):
     """cassie on trimesh, one policy step from a settled state next to a
     riser: the port's plain version against the JAX plain version and the
     Pallas kernel in interpret mode, atol 5e-3 on the six outputs; the host
     build of the kernel source against the plain version."""
     jenv, tenv = cassie
-    state_t = env_state_from_jax(_np_tree(_settled(jenv, cassie_step)))
+    state_t = env_state_from_jax(_np_tree(cassie_settled))
     args = _riser_args(tenv, state_t)
     jcc = dataclasses.replace(jenv.chain_engine.cc, **flag)
     tcc = dataclasses.replace(tenv.chain_engine.cc, **flag)
@@ -392,10 +409,11 @@ def _compare_rollout(jenv, tenv, step, seed, steps, pos_atol, q_atol):
     assert state_t.common_step == int(state_j.common_step)
 
 
-def test_cassie_env_one_step_from_settled_state(cassie, cassie_step):
+def test_cassie_env_one_step_from_settled_state(cassie, cassie_step,
+                                                cassie_settled):
     jenv, tenv = cassie
     assert tenv.grid.wall_thresh > 0 and tenv.obs_dim == jenv.obs_dim == 169
-    _compare_env_step(jenv, tenv, cassie_step, _settled(jenv, cassie_step))
+    _compare_env_step(jenv, tenv, cassie_step, cassie_settled)
 
 
 def test_cassie_env_rollout_from_reset(cassie, cassie_step):
@@ -422,22 +440,22 @@ def test_cassie_spawn_uses_the_wall_rule(cassie):
     assert (out_t[2].numpy() > pos[2] + 0.05).all()
 
 
-def test_a1_env_one_step_and_rollout(a1, a1_step):
+def test_a1_env_one_step_and_rollout(a1, a1_step, a1_settled):
     """a1 runs K1 on a layout without a level-0 point group."""
     jenv, tenv = a1
-    _compare_env_step(jenv, tenv, a1_step, _settled(jenv, a1_step),
-                      obs_atol=1e-3)
+    _compare_env_step(jenv, tenv, a1_step, a1_settled, obs_atol=1e-3)
     _compare_rollout(jenv, tenv, a1_step, seed=1, steps=20, pos_atol=2e-2,
                      q_atol=5e-2)
 
 
 @pytest.mark.skipif(not HAS_CXX, reason="no host C++ compiler")
-def test_host_build_of_a1_layout_matches_plain(a1):
+def test_host_build_of_a1_layout_matches_plain(a1, a1_settled):
+    """On a fresh reset and on the settled state."""
     tenv = a1[1]
     cc = tenv.chain_engine.cc
-    state = tenv.initial_state()
-    zeros = torch.zeros((N, tenv.num_actions))
     for settled in (False, True):
+        state = env_state_from_jax(_np_tree(a1_settled)) if settled \
+            else tenv.initial_state()
         args = kernel_args(tenv, state)
         ref = chain_step.run_decimation_chain(cc, *args)
         out = chain_kernel.run_decimation_host(cc, *args)
@@ -445,8 +463,6 @@ def test_host_build_of_a1_layout_matches_plain(a1):
         tol = tolerances(settled)
         assert all(errs[k] <= tol[k] for k in errs), errs
         assert errs["q"] < 1e-4, errs
-        for _ in range(30):
-            state, _ = tenv.step(state, zeros)
     assert float(ref[6][2].sum()) > 100.0
     lay = chain_kernel.library_layout(chain_kernel.load_library(
         "host", layout=chain_kernel.model_layout(cc.cm)))
