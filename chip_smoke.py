@@ -43,8 +43,38 @@ Phases (any failure exits non-zero and prints no result):
      changed, a save / load round trip restores weights, moments and
      iteration; prints policy-steps/s (24 x num_envs x iterations / wall,
      synced) and the rollout / update split of an iteration;
-  5. print the kernel table line, the card's name and power limit, and the
-     result line.
+  5. the general stacked engine (physics/engine.py, plain torch ops):
+     (a) with ``use_chain_engine=False``, 30 zero-action steps on the
+         general engine, then the general engine held against the kernel
+         with the plane re-sampled per sim dt (the general engine's
+         semantics) from that settled state, with phase 2's settled
+         tolerances and its contact-flip rule (an env passes within
+         tolerance of the general engine on the card or on the CPU;
+         kernel_numerics.SWITCH_ENVS_SHARE of the envs may fail both);
+         both timed with CUDA events:
+           go1 rough at 1800 envs, P drive, one policy step against K2;
+           anymal_c_rough at its own 4096 envs on trimesh with friction
+           anchors (compared too) and the wall rule, one SEA segment (one
+           sim dt, the net's torque held over it, as in phase 2) against
+           K3, at one substep per sim dt: at its registered four the
+           kernel holds each point's tangent plane over the sim dt's
+           substeps while the general engine samples the surface every
+           substep, two laws on rough terrain; at one they are one law;
+     (b) anymal_c_flat as registered (4096 envs, 150 self-collision pairs,
+         SEA LSTM, friction anchors) trains through registry.make_runner,
+         1 warm and 1 timed iteration at its registered 128-64-32 width,
+         with every kernel variant's launch count held at zero; then six
+         steps of wide random actions and that state's self-contact
+         forces on the card against the same call on the CPU; then two
+         rollout steps under torch.profiler: device launches, busy time
+         and host-to-device copies per policy step (and the same for go1
+         rough's chain path, for the copies);
+     (c) go1 as registered (4096 envs on the plane) with the V drive, the
+         T drive, an applied UniNet and body damping: each builds on the
+         card, takes the general engine, resets and steps twice with
+         finite observations, the second step timed;
+  6. print the kernel table line, the card's wall time for the whole run,
+     the card's name and power limit, and the result line.
 
 Imports the port only (legged_gym_tpu_torch), never JAX.
 """
@@ -59,6 +89,7 @@ import time
 import torch
 
 DEVICE = "cuda"
+T_START = time.perf_counter()
 GO1_ENVS = 1800
 ALIENGO_ENVS = 4096
 TASK_ENVS = 4096        # cassie, anymal_c_rough, a1 as registered
@@ -68,6 +99,9 @@ GO1_TRAIN_ITERS = 3
 ALIENGO_TRAIN_ITERS = 2
 CASSIE_TRAIN_ITERS = 2
 ANYMAL_TRAIN_ITERS = 2
+FLAT_TRAIN_ITERS = 1    # anymal_c_flat on the general engine: 20-29 s each
+PROFILED_STEPS = 2      # rollout steps under torch.profiler in phase 5
+SC_ATOL, SC_RTOL = 1e-4, 1e-5   # self-contact forces [N], card vs CPU
 ANCHOR_DIFF_MAX = 0     # anchor entries allowed to differ in live / sentinel
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -232,16 +266,20 @@ def check_kernel(tag, env, smi, variant, timed=True, switch_share=0.0,
     return entry
 
 
-def train_path(tag, env, task, iterations, variant, smi, per_step=1):
+def train_path(tag, env, task, iterations, variant, smi, per_step=1,
+               width=(512, 256, 128)):
     """Phase 4 for one task: a few PPO iterations through
     registry.make_runner, ``per_step`` launches counted on ``variant``
-    per policy step and none on any other; returns the launch count."""
+    per policy step and none on any other; returns (the launch count, the
+    runner). ``variant`` None: a path without the kernel (the general
+    engine), where every variant's count must stay 0. ``width``: the
+    task's registered actor widths."""
     from legged_gym_tpu_torch import registry
     from legged_gym_tpu_torch.physics import chain_kernel
 
     n = env.num_envs
     _, tcfg = registry.get_cfgs(task)
-    if list(tcfg.policy.actor_hidden_dims) != [512, 256, 128] \
+    if list(tcfg.policy.actor_hidden_dims) != list(width) \
             or tcfg.runner.num_steps_per_env != HORIZON \
             or (tcfg.algorithm.num_learning_epochs,
                 tcfg.algorithm.num_mini_batches) != (5, 4):
@@ -255,9 +293,9 @@ def train_path(tag, env, task, iterations, variant, smi, per_step=1):
     runner.learn(iterations, init_at_random_ep_len=True)
     torch.cuda.synchronize()
     counts = dict(chain_kernel.launches)
-    launches = counts[variant]
+    launches = counts[variant] if variant else 0
     steps = 1 + iterations * HORIZON          # the reset step + rollouts
-    if launches != per_step * steps:
+    if variant and launches != per_step * steps:
         fail(f"{tag}: kernel {variant} launched {launches} times in {steps} "
              f"policy steps, {per_step} expected per step")
     for name, count in counts.items():
@@ -311,8 +349,9 @@ def train_path(tag, env, task, iterations, variant, smi, per_step=1):
     wall = time.perf_counter() - t0
     rollout_s = sum(t["rollout_s"] for t in runner.learn_fn.times)
     update_s = sum(t["update_s"] for t in runner.learn_fn.times)
-    print(f"phase 4 {tag}: {iterations} iterations, {launches} {variant} "
-          f"launches in {steps} policy steps; reward/step "
+    print(f"phase 4 {tag}: {iterations} iterations, {launches} "
+          f"{variant or 'kernel'} launches in {steps} policy steps; "
+          f"reward/step "
           f"{m['mean_step_reward']:.5f}, kl {m['kl']:.4f}, lr "
           f"{m['lr']:.2e}, noise std {m['noise_std']:.3f}; save / load "
           f"round trip ok [{smi}]")
@@ -321,7 +360,303 @@ def train_path(tag, env, task, iterations, variant, smi, per_step=1):
           f"{wall / iterations:.3f} s each: rollout "
           f"{rollout_s / iterations:.3f} s, update "
           f"{update_s / iterations:.3f} s) [{smi}]")
-    return launches
+    return launches, runner
+
+
+def profile_steps(tag, env, state, smi, steps=PROFILED_STEPS):
+    """Rollout steps under torch.profiler (device activity only) with
+    random normal actions: device launches (kernels, copies, fills), busy
+    ms and host-to-device copies per policy step, and the top ops by
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    with torch.no_grad():
+        state, _ = env.step(state, torch.randn(
+            (env.num_envs, env.num_actions), generator=gen, device=DEVICE))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = env.step(state, torch.randn(
+                    (env.num_envs, env.num_actions), generator=gen,
+                    device=DEVICE))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+    launches = sum(c for c, _ in kernels.values()) / steps
+    busy_ms = 1e-3 * sum(t for _, t in kernels.values()) / steps
+    htod = sum(c for name, (c, _) in kernels.items()
+               if "HtoD" in name) / steps
+    wall_ms = 1e3 * wall / steps
+    if not launches:
+        fail(f"{tag}: the profiler saw no device work")
+    print(f"phase 5 {tag}: {launches:.0f} device launches per policy step "
+          f"({htod:.0f} host-to-device copies), busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.1f} ms wall (profiler on), idle share "
+          f"{1 - busy_ms / wall_ms:.3f} [{smi}]")
+    for name, (c, t) in sorted(kernels.items(),
+                               key=lambda kv: -kv[1][1])[:6]:
+        print(f"    {t / steps:9.1f} us {c / steps:8.1f}x  {name[:80]}")
+    return launches, htod
+
+
+def other_drive(over, smi):
+    """Phase 5c: go1 as registered (4096 envs on the plane) with ``over``
+    (dotted config paths -> values) builds on the card, takes the general
+    engine and steps under random actions with finite observations and
+    rewards; the reset and the first step warm up, the second is timed."""
+    from legged_gym_tpu_torch import registry
+    from legged_gym_tpu_torch.physics import chain_kernel
+
+    cfg, _ = registry.get_cfgs("go1")
+    for path, value in over.items():
+        obj = cfg
+        *head, last = path.split(".")
+        for h in head:
+            obj = getattr(obj, h)
+        setattr(obj, last, value)
+    env, _ = registry.make_env(cfg=cfg, device=DEVICE)
+    n = env.num_envs
+    if n != TASK_ENVS or env.chain_engine is not None \
+            or not env.general_reasons:
+        fail(f"go1 {over}: {n} envs, not on the general engine")
+    before = dict(chain_kernel.launches)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    steps = 2
+    with torch.no_grad():
+        state, obs = env.reset()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, tr = env.step(state, torch.randn(
+                (n, env.num_actions), generator=gen, device=DEVICE))
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+    if not (torch.isfinite(tr.obs).all() and torch.isfinite(tr.reward).all()
+            and torch.isfinite(tr.torques).all()):
+        fail(f"go1 {over}: non-finite step outputs")
+    if dict(chain_kernel.launches) != before:
+        fail(f"go1 {over}: the kernel was launched")
+    print(f"phase 5 go1 {over} ({env.general_reasons[0]}), {n} envs: a "
+          f"reset and {steps} steps on the card, the last "
+          f"{1e3 * step_s:.1f} ms wall; |tau| max "
+          f"{float(tr.torques.abs().max()):.2f} N*m, base height mean "
+          f"{float(state.physics.pos[2].mean()):.3f} m [{smi}]")
+
+
+def check_general(tag, env, smi, variant):
+    """Phase 5a: from a settled state, the general engine against the
+    kernel with the plane re-sampled every sim dt (plane_per_step off, the
+    general engine's semantics): go1 rough's P drive over one policy step
+    against K2, and anymal_c_rough's SEA drive over one segment (one sim
+    dt, the SEA net's torque held over it, as phase 2's K3 gate) against
+    K3 with friction anchors and the wall rule, the anchors compared too.
+    Phase 2's settled tolerances and contact-flip rule: an env passes
+    within tolerance of the general engine on the card or on the CPU, and
+    kernel_numerics.SWITCH_ENVS_SHARE of the envs may fail both. Both
+    sides timed with CUDA events."""
+    import numpy as np
+
+    from legged_gym_tpu_torch.physics import chain_kernel, chain_step
+    from legged_gym_tpu_torch.physics.chain_engine import ChainEngine
+    from legged_gym_tpu_torch.physics.contact import ANCHOR_SENTINEL
+    from legged_gym_tpu_torch.scripts import kernel_numerics as kn
+    from legged_gym_tpu_torch.terrain.heightfield import TerrainPatch
+
+    n = env.num_envs
+    if env.chain_engine is not None \
+            or env.general_reasons != ["use_chain_engine off"]:
+        fail(f"{tag}: the env is not on the general engine "
+             f"({env.general_reasons})")
+    sea, anchored = env._sea is not None, env._warm_start
+    # the SEA path: one segment (one sim dt, one K3 launch), as phase 2
+    decimation = 1 if sea else env.cfg.control.decimation
+    ce = ChainEngine(env.engine, decimation=decimation,
+                     patch_S=env.contact_patch_S, plane_per_step=False)
+    ce.bind_grid(env.grid)
+    if chain_step.variant(ce.cc_sea if sea else ce.cc, anchored) != variant:
+        fail(f"{tag}: the comparison step is not {variant}")
+    launches = 1
+    state = env.initial_state()
+    zeros = torch.zeros((n, env.num_actions), device=DEVICE)
+    with torch.no_grad():
+        for _ in range(30):
+            state, _ = env.step(state, zeros)
+    phys, lp, fric = state.physics, state.link_params, state.friction
+    targets = env._dflt.expand(env.num_dof, n)
+    cpatch = None                   # on a plane: the chain's zero window
+    if env.grid is not None:
+        lo = (env.patch_cache_S - env.contact_patch_S) // 2
+        hi = lo + env.contact_patch_S
+        cpatch = (state.patch_T[lo:hi, lo:hi].contiguous(),
+                  state.patch_r0 + lo, state.patch_c0 + lo)
+    if anchored:
+        # the engine's (3, P, N) anchors <-> the kernel's packed points
+        idx = np.concatenate([g.cp_index.reshape(-1)
+                              for g in ce.cm.groups])
+        live = torch.as_tensor(idx >= 0, device=DEVICE)
+        src = torch.as_tensor(idx[idx >= 0], device=DEVICE)
+        packed = torch.full((3, len(idx), n), ANCHOR_SENTINEL,
+                            device=DEVICE)
+        packed[:, live] = state.contact_ws[:, src]
+
+    if sea:
+        # the SEA net's torque at the settled state, held over the segment
+        with torch.no_grad():
+            sea_tau, _ = env._sea_tau_fn(zeros.T, n)(phys.q, phys.qd,
+                                               state.actuator_state)
+
+    def general(device):
+        def on(t):
+            return t.to(device)
+        p = type(phys)(*(on(t) for t in (phys.pos, phys.quat, phys.vel,
+                                          phys.q, phys.qd)))
+        patch = None
+        if env.grid is not None:
+            patch = TerrainPatch(h=on(state.patch), r0=on(state.patch_r0),
+                                 c0=on(state.patch_c0))
+        ws = on(state.contact_ws) if anchored else None
+        info = None
+        for _ in range(decimation):
+            if sea:
+                out = env.engine.step_torques(p, on(lp), on(fric),
+                                              on(sea_tau), patch=patch,
+                                              f_ws=ws)
+            else:
+                out = env.engine.step_pos_targets(
+                    p, on(lp), on(fric), on(targets), patch=patch, f_ws=ws)
+            p, info = out[0], out[1]
+            if anchored:
+                ws = out[2]
+        return [p.pos, p.quat, p.vel, p.q, p.qd, info.torques,
+                info.body_forces] + ([ws] if anchored else [])
+
+    def kernel():
+        if sea:
+            out = ce.step_decimation_torque_fn(
+                phys, lp, fric, lambda q, qd, c: (sea_tau, c), None,
+                contact_patch=cpatch, anchors=packed if anchored else None)
+            ws = out[4] if anchored else None
+        else:
+            out = ce.step_decimation_pos(phys, lp, fric, targets,
+                                         contact_patch=cpatch)
+        p, tau, body_f = out[:3]
+        res = [p.pos, p.quat, p.vel, p.q, p.qd, tau, body_f]
+        if anchored:
+            back = torch.full_like(state.contact_ws, ANCHOR_SENTINEL)
+            back[:, src] = ws[:, live]
+            res.append(back)
+        return res
+
+    def over(ref, out):
+        """Envs over a tolerance of ``out`` against ``ref``: the seven
+        outputs, and the anchors (live / sentinel state, kn.ANCHOR_ATOL
+        where both are live)."""
+        bad = set(kn.envs_over(ref[:7], out[:7], True))
+        if anchored:
+            r, o = ref[7], out[7]
+            live_r, live_o = r < kn.ANCHOR_LIVE, o < kn.ANCHOR_LIVE
+            err = ((r - o).abs() * (live_r & live_o)).flatten(0, 1).amax(0)
+            diff = (live_r != live_o).flatten(0, 1).any(0)
+            bad |= set(torch.nonzero(diff | (err > kn.ANCHOR_ATOL))
+                       .flatten().tolist())
+        return bad
+
+    with torch.no_grad():
+        ref = general(DEVICE)
+        counted = chain_kernel.launches[variant]
+        out = kernel()
+        torch.cuda.synchronize()
+        if chain_kernel.launches[variant] != counted + launches:
+            fail(f"{tag}: {launches} {variant} launches were not counted")
+        ref_cpu = general("cpu")
+    for name, r, o in zip(kn.NAMES + ("anchors",), ref, out):
+        if tuple(r.shape) != tuple(o.shape) or not torch.isfinite(r).all():
+            fail(f"{tag} {name}: general engine {tuple(r.shape)} (finite: "
+                 f"{bool(torch.isfinite(r).all())}), kernel "
+                 f"{tuple(o.shape)}")
+    errs = {k: float(v.max())
+            for k, v in kn.per_env_errors(ref[:7], out[:7]).items()}
+    tol = kn.tolerances(settled=True)
+    in_contact = int(kn.contact_envs(ref).sum())
+    out_cpu = [o.cpu() for o in out]
+    over_card = over(ref, out)
+    spread = over(ref_cpu, [r.cpu() for r in ref])
+    over_both = over_card & over(ref_cpu, out_cpu)
+    allowed = int(kn.SWITCH_ENVS_SHARE * n)
+    print(f"phase 5 {tag}: max |{variant} - general engine| "
+          + ", ".join(f"{k} {v:.3e} (tol {tol[k]:g})"
+                      for k, v in errs.items())
+          + f"; {in_contact} of {n} envs in contact; over a tolerance: "
+          f"against the card's general run {len(over_card)} envs, the CPU's "
+          f"vs the card's general run {len(spread)}, against both "
+          f"{len(over_both)} (allowed {allowed}) [{smi}]")
+    if anchored:
+        err, n_live, n_diff = kn.anchor_errors(ref[7], out[7])
+        a_in_live = int((state.contact_ws < kn.ANCHOR_LIVE).sum())
+        print(f"phase 5 {tag}: anchors in: {a_in_live} of "
+              f"{state.contact_ws.numel()} entries live; out: {n_live} live "
+              f"in both, {n_diff} differ in live / sentinel state; max "
+              f"|{variant} - general engine| {err:.3e} m (tol "
+              f"{kn.ANCHOR_ATOL:g}) [{smi}]")
+        if a_in_live < 0.9 * state.contact_ws.numel():
+            fail(f"{tag}: the settled state carries mostly sentinel "
+                 f"anchors: the anchored law is not exercised")
+    if in_contact < n // 2:
+        fail(f"{tag}: the settled state is not in contact")
+    if len(over_both) > allowed:
+        fail(f"{tag}: {len(over_both)} envs over a tolerance, {allowed} "
+             f"allowed: {errs}")
+    with torch.no_grad():
+        general_ms = kn.cuda_ms(lambda: general(DEVICE), reps=3, warmup=1)
+        kernel_ms = kn.cuda_ms(kernel, reps=20)
+    print(f"phase 5 {tag}: {'one sim dt' if sea else 'one policy step'} "
+          f"of physics, general engine "
+          f"{general_ms:.2f} ms, {variant} through the wrapper "
+          f"{kernel_ms:.4f} ms ({general_ms / kernel_ms:.0f}x) [{smi}]")
+
+
+def check_self_collision(tag, env, state, smi, steps=6, action_std=5.0):
+    """Phase 5b: from ``state``, ``steps`` policy steps of random normal
+    actions with standard deviation ``action_std`` (swings wide enough to
+    bring legs together), then that state's self-contact forces on the
+    card against the same call on the CPU (the port against itself: the
+    law is held against the JAX package by the CPU tests), at the CPU
+    tests' law tolerances; some env must have pairs in contact."""
+    from legged_gym_tpu_torch.physics.kinematics import (
+        contact_point_kinematics, forward_kinematics)
+
+    eng = env.engine
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    with torch.no_grad():
+        for _ in range(steps):
+            state, _ = env.step(state, action_std * torch.randn(
+                (env.num_envs, env.num_actions), generator=gen,
+                device=DEVICE))
+        cp_pos, cp_vel = contact_point_kinematics(
+            eng.model, forward_kinematics(eng.model, state.physics))
+        f = eng.consts(torch.float32, DEVICE)["sc"](cp_pos, cp_vel,
+                                                    eng.dt_inner)
+        f_cpu = eng.consts(torch.float32, "cpu")["sc"](
+            cp_pos.cpu(), cp_vel.cpu(), eng.dt_inner)
+    torch.cuda.synchronize()
+    err = (f.cpu() - f_cpu).abs()
+    bad = int((err > SC_ATOL + SC_RTOL * f_cpu.abs()).sum())
+    touching = int((f_cpu.abs().amax(dim=(0, 1)) > 0).sum())
+    print(f"phase 5 {tag}: self-contact forces in {touching} of "
+          f"{state.n} envs, max {float(f_cpu.abs().max()):.1f} N; max "
+          f"|card - CPU| {float(err.max()):.3e} N, {bad} entries over "
+          f"{SC_ATOL:g} N + {SC_RTOL:g} rel [{smi}]")
+    if not touching:
+        fail(f"{tag}: no self-contact in the state")
+    if bad or not torch.isfinite(f).all():
+        fail(f"{tag}: self-contact forces differ between card and CPU")
 
 
 def main():
@@ -462,17 +797,61 @@ def main():
           f"(go1 rough, {GO1_ENVS} envs, random actions) [{smi}]")
 
     # ---- phase 4: the training path, go1 rough then aliengo ----
-    k1_train = train_path("go1 rough 1800", env, "go1", GO1_TRAIN_ITERS,
-                          "K1", smi)
-    k4_train = train_path("aliengo 4096", ali_env, "aliengo",
-                          ALIENGO_TRAIN_ITERS, "K4", smi)
-    k2_train = train_path("cassie 4096", cas_env, "cassie",
-                          CASSIE_TRAIN_ITERS, "K2", smi)
-    k3_train = train_path("anymal_c_rough 4096", any_env, "anymal_c_rough",
-                          ANYMAL_TRAIN_ITERS, "K3", smi,
-                          per_step=any_env.cfg.control.decimation)
+    k1_train, go1_runner = train_path("go1 rough 1800", env, "go1",
+                                      GO1_TRAIN_ITERS, "K1", smi)
+    k4_train, _ = train_path("aliengo 4096", ali_env, "aliengo",
+                             ALIENGO_TRAIN_ITERS, "K4", smi)
+    k2_train, _ = train_path("cassie 4096", cas_env, "cassie",
+                             CASSIE_TRAIN_ITERS, "K2", smi)
+    k3_train, _ = train_path("anymal_c_rough 4096", any_env,
+                             "anymal_c_rough", ANYMAL_TRAIN_ITERS, "K3", smi,
+                             per_step=any_env.cfg.control.decimation)
+    del ali_env, cas_env, any_env
 
-    # ---- phase 5: kernel table, card, result ----
+    # ---- phase 5: the general stacked engine ----
+    gen_cfg = kn.rough_cfg(GO1_ENVS)
+    gen_cfg.sim.use_chain_engine = False
+    gen_env, _ = registry.make_env(cfg=gen_cfg, device=DEVICE)
+    check_general("go1 rough 1800, general engine vs K2", gen_env, smi, "K2")
+    # one substep per sim dt: the kernel's plane per sim dt is then the
+    # general engine's per-substep sample (at 4 they are two laws on rough
+    # terrain: the chain holds each point's tangent plane for 4 substeps)
+    gen_cfg, _ = registry.get_cfgs("anymal_c_rough")
+    gen_cfg.sim.use_chain_engine = False
+    gen_cfg.sim.substeps = 1
+    gen_env, _ = registry.make_env(cfg=gen_cfg, device=DEVICE)
+    if gen_env.num_envs != TASK_ENVS or gen_env.grid.wall_thresh <= 0:
+        fail(f"anymal_c_rough: {gen_env.num_envs} envs, not on trimesh "
+             f"with the wall rule")
+    check_general("anymal_c_rough 4096 (1 substep), general engine vs "
+                  "K3+K4+wall", gen_env, smi, "K3")
+    del gen_env
+    flat_env, _ = registry.make_env("anymal_c_flat", device=DEVICE)
+    if flat_env.num_envs != TASK_ENVS or flat_env.chain_engine is not None \
+            or flat_env.general_reasons != ["self-collision"] \
+            or len(flat_env.engine.sc_pairs) != 150:
+        fail(f"anymal_c_flat: {flat_env.num_envs} envs, physics path "
+             f"{flat_env.general_reasons}")
+    _, flat_runner = train_path(
+        "anymal_c_flat 4096 (general engine)", flat_env, "anymal_c_flat",
+        FLAT_TRAIN_ITERS, None, smi, width=(128, 64, 32))
+    check_self_collision("anymal_c_flat 4096", flat_env,
+                         flat_runner.env_state, smi)
+    for name in chain_kernel.launches:
+        chain_kernel.launches[name] = 0
+    profile_steps("anymal_c_flat 4096 (general engine)", flat_env,
+                  flat_runner.env_state, smi)
+    if any(chain_kernel.launches.values()):
+        fail(f"anymal_c_flat launched the kernel: {chain_kernel.launches}")
+    profile_steps("go1 rough 1800 (chain path, K1)", env,
+                  go1_runner.env_state, smi)
+    for over in ({"control.control_type": "V"},
+                 {"control.control_type": "T"},
+                 {"control.actuator_net_discard_output": False},
+                 {"asset.linear_damping": 0.1, "asset.angular_damping": 0.1}):
+        other_drive(over, smi)
+
+    # ---- phase 6: kernel table, card, result ----
     line = {"kernels": [
         dict({"name": "run_decimation (K1)",
               "route": "cuda",
@@ -507,6 +886,8 @@ def main():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")
     print(json.dumps(line))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s on the card "
+          f"machine, kernel builds included")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

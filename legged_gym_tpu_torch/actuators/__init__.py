@@ -1,4 +1,5 @@
-"""Actuator networks evaluated between physics launches."""
+"""Actuator networks evaluated between physics steps."""
 from legged_gym_tpu_torch.actuators.sea_lstm import SEANet
+from legged_gym_tpu_torch.actuators.uninet import UniNet
 
-__all__ = ["SEANet"]
+__all__ = ["SEANet", "UniNet"]

@@ -208,8 +208,8 @@ class SimCfg:
     dtype: str = "float32"
     # fused chain-layout physics (physics/chain_engine.py): the whole
     # decimation loop as one CUDA kernel launch on the card, the plain
-    # PyTorch version on the CPU. The port has no general engine yet, so
-    # False raises NotImplementedError.
+    # PyTorch version on the CPU. False runs the general stacked engine
+    # (physics/engine.py, plain torch ops) instead.
     use_chain_engine: bool = True
     # anchored static friction (contact.ContactConfig.warm_start):
     # carries per-point tangential anchors across substeps so loaded

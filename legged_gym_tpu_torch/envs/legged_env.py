@@ -1,15 +1,22 @@
 """The locomotion environment: the reference's LeggedRobot task
 (legged_robot.py:51-975) as one step function over batch-last tensors.
 
-Ported paths, both through the fused chain physics
-(physics/chain_engine.py: the CUDA kernel on the card, its plain version
-on the CPU): position drive (``control_type="P"``, the Go1 UniNet output
-being discarded by the reference, config.ControlCfg) and the SEA torque
-drive (ANYmal's actuator LSTM evaluated once per sim dt between kernel
-launches); plane, heightfield or trimesh terrain; with or without
-warm-start friction anchors. Everything else (an applied UniNet, V / T
-control, self-collision, per-link damping, privileged observations)
-raises NotImplementedError. The env simulates exactly ``num_envs`` envs.
+Two physics paths, chosen at construction as the JAX package chooses
+them:
+- the fused chain physics (physics/chain_engine.py: the CUDA kernel on
+  the card, its plain version on the CPU) for position drive
+  (``control_type="P"``, the Go1 UniNet output being discarded by the
+  reference, config.ControlCfg) and for the SEA torque drive (ANYmal's
+  actuator LSTM evaluated once per sim dt between kernel launches);
+- the general stacked engine (physics/engine.py, plain torch ops) when
+  self-collision pairs remain after the rest filter (anymal_c_flat), body
+  damping is set, ``sim.use_chain_engine`` is off, an applied UniNet is
+  configured, or the control type is V or T without the SEA net. A config
+  that should take the chain path and cannot build it raises.
+Plane, heightfield or trimesh terrain; with or without warm-start friction
+anchors (per point group on the chain path, one stacked (3, P, N) array on
+the general engine). Privileged observations raise NotImplementedError.
+The env simulates exactly ``num_envs`` envs.
 
 Layout: internal tensors are batch-LAST; the policy boundary (obs /
 actions) is batch-first. Random draws come from one ``torch.Generator``
@@ -76,11 +83,13 @@ class EnvState:
     link_params: torch.Tensor        # (nl, 10, N) randomized inertias
     lin_vel_x_range: torch.Tensor    # (2,) command-curriculum state
     episode_sums: dict               # name -> (N,)
-    # static-friction anchor carry when cfg.sim.contact_warm_start: packed
-    # (3, n_points, N) (physics/chain_step.py: split_anchors), else None
+    # static-friction anchor carry when cfg.sim.contact_warm_start, else
+    # None: (3, n_points, N) in the chain layout's point order on the chain
+    # path (physics/chain_step.py: split_anchors), (3, P, N) in the model's
+    # point order on the general engine
     contact_ws: Optional[torch.Tensor] = None
-    # recurrent actuator-net state: {"h", "c"} each (2, 8, nq, N) for the
-    # SEA LSTM, {} without an applied actuator net
+    # actuator-net state: {"h", "c"} each (2, 8, nq, N) for the SEA LSTM,
+    # {"pos_err", "vel"} each (12, 5, N) for an applied UniNet, else {}
     actuator_state: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -133,22 +142,22 @@ class LeggedEnv:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         ctrl = cfg.control
-        if ctrl.control_type != "P":
-            raise _not_ported(f"control_type {ctrl.control_type!r}")
-        # the SEA LSTM is applied (anymal.py:52-55); with the reference's
-        # discard quirk (config.ControlCfg) a net's output never reaches
-        # the dynamics and its compute is skipped
+        # actuator networks (anymal.py:52-55, go1.py:44-47); with the
+        # reference's discard quirk (config.ControlCfg) a net's output
+        # never reaches the dynamics and its compute is skipped
         self._sea = None
+        self._uninet = None
         if ctrl.use_actuator_network and not ctrl.actuator_net_discard_output:
             net_file = assets.resolve(ctrl.actuator_net_file)
-            if "lstm" not in os.path.basename(net_file):
-                raise _not_ported("an applied UniNet actuator network")
-            from legged_gym_tpu_torch.actuators.sea_lstm import SEANet
-            self._sea = SEANet(net_file).to(self.device)
-        if not cfg.sim.use_chain_engine:
-            raise _not_ported("the general stacked engine")
-        if cfg.asset.linear_damping or cfg.asset.angular_damping:
-            raise _not_ported("per-link body damping")
+            if "lstm" in os.path.basename(net_file):
+                from legged_gym_tpu_torch.actuators.sea_lstm import SEANet
+                self._sea = SEANet(net_file).to(self.device)
+            else:
+                from legged_gym_tpu_torch.actuators.uninet import UniNet
+                self._uninet = UniNet(net_file).to(self.device)
+        if self._sea is None and ctrl.control_type not in ("P", "V", "T"):
+            raise ValueError(f"control_type {ctrl.control_type!r}: P, V "
+                             "or T")
         if cfg.env.num_privileged_obs is not None:
             raise _not_ported("privileged observations")
 
@@ -210,7 +219,7 @@ class LeggedEnv:
         self.custom_origins = mesh in ("heightfield", "trimesh")
         self._init_origins(seed)
 
-        # --- engine constants + the fused chain physics ---
+        # --- engine, then the fused chain physics where it applies ---
         self._warm_start = bool(cfg.sim.contact_warm_start)
         simcfg = SimConfig(
             dt=cfg.sim.dt, substeps=cfg.sim.substeps,
@@ -220,24 +229,44 @@ class LeggedEnv:
                 warm_start=self._warm_start,
                 anchor_release_depth=cfg.sim.contact_anchor_release_depth,
                 terrain_friction=cfg.terrain.static_friction))
-        self.engine = Engine(self.model, simcfg, kp=self.p_gains,
-                             kd=self.d_gains,
+        # Isaac semantics: self_collisions == 0 enables intra-actor
+        # collision (legged_robot.py:711-720; anymal_c_flat)
+        self.engine = Engine(self.model, simcfg, grid=self.grid,
+                             kp=self.p_gains, kd=self.d_gains,
                              fixed_base=cfg.asset.fix_base_link,
+                             lin_damping=cfg.asset.linear_damping,
+                             ang_damping=cfg.asset.angular_damping,
                              self_collision=cfg.asset.self_collisions == 0)
+        self.engine.filter_self_collision_pairs(self.default_dof_pos)
         # numeric apparent-mass probe at the default pose: with the
         # implicit PD servo impedance for position-drive robots, without it
-        # for the SEA torque drive (probing with the servo overestimates
-        # the mass and the over-corrected stopping impulse micro-bounces
-        # the stance)
+        # for the torque drives (SEA, V, T: probing with the servo
+        # overestimates the mass and the over-corrected stopping impulse
+        # micro-bounces the stance)
+        torque_drive = (self._sea is not None
+                        or ctrl.control_type in ("V", "T"))
         self.engine.calibrate_contact_mass(
             self.default_dof_pos,
             lambda n: broadcast_nominal(self.model, n, self.dtype),
-            drive="torque" if self._sea is not None else "pd")
-        self.chain_engine = ChainEngine(
-            self.engine, decimation=cfg.control.decimation,
-            patch_S=self.contact_patch_S,
-            plane_per_step=cfg.sim.contact_plane_per_step)
-        self.chain_engine.bind_grid(self.grid)
+            drive="torque" if torque_drive else "pd")
+        # the general engine where the chain step does not apply (the JAX
+        # package's legged_env.py:250-275, 345-352), with no fallback: a
+        # chain-path config whose chain model does not build raises
+        self.general_reasons = [why for why, hit in (
+            ("self-collision", self.engine.has_self_collision),
+            ("body damping", bool(cfg.asset.linear_damping
+                                  or cfg.asset.angular_damping)),
+            ("use_chain_engine off", not cfg.sim.use_chain_engine),
+            ("applied UniNet", self._uninet is not None),
+            (f"control_type {ctrl.control_type}",
+             self._sea is None and ctrl.control_type != "P")) if hit]
+        self.chain_engine = None
+        if not self.general_reasons:
+            self.chain_engine = ChainEngine(
+                self.engine, decimation=cfg.control.decimation,
+                patch_S=self.contact_patch_S,
+                plane_per_step=cfg.sim.contact_plane_per_step)
+            self.chain_engine.bind_grid(self.grid)
 
         # --- height scan (legged_robot.py:802-816) ---
         self.measure_heights = (cfg.terrain.measure_heights
@@ -288,6 +317,9 @@ class LeggedEnv:
         self._soft_hi = col(self.soft_dof_upper)
         self._vel_lim = col(self.dof_vel_limit)
         self._torque_lim = col(self.torque_limit)
+        self._neg_torque_lim = -self._torque_lim
+        self._kp = col(self.p_gains)
+        self._kd = col(self.d_gains)
         self._commands_scale = col(self.commands_scale)
         self._noise_vec = col(self.noise_vec)
         self._gvec = col([0.0, 0.0, -1.0])
@@ -574,10 +606,22 @@ class LeggedEnv:
             lin_vel_x_range=lin_vel_x_range,
             episode_sums={name: torch.zeros(n, dtype=self.dtype, device=dev)
                           for name in self.reward_scales},
-            contact_ws=self.chain_engine.init_anchors(n, dev, self.dtype),
+            contact_ws=self._init_contact_ws(n),
             actuator_state=self._init_actuator_state(n))
 
+    def _init_contact_ws(self, n):
+        """Far-sentinel anchors in the layout of the env's physics path, or
+        None without warm start."""
+        if not self._warm_start:
+            return None
+        if self.chain_engine is not None:
+            return self.chain_engine.init_anchors(n, self.device, self.dtype)
+        return torch.full((3, len(self.model.cp_link), n), ANCHOR_SENTINEL,
+                          dtype=self.dtype, device=self.device)
+
     def _init_actuator_state(self, n):
+        if self._uninet is not None:
+            return self._uninet.init_state(n, self.dtype, self.device)
         if self._sea is None:
             return {}
         h, c = self._sea.init_state(self.num_dof * n, self.dtype,
@@ -617,44 +661,20 @@ class LeggedEnv:
                 ph_c, ph_T = state.patch, state.patch_T
                 pr0, pc0 = state.patch_r0, state.patch_c0
             patch = TerrainPatch(h=ph_c, r0=pr0, c0=pc0)
-            lo = (self.patch_cache_S - self.contact_patch_S) // 2
-            hi = lo + self.contact_patch_S
-            contact_patch = (ph_T[lo:hi, lo:hi].contiguous(), pr0 + lo,
-                             pc0 + lo)
+            if self.chain_engine is not None:
+                lo = (self.patch_cache_S - self.contact_patch_S) // 2
+                hi = lo + self.contact_patch_S
+                contact_patch = (ph_T[lo:hi, lo:hi].contiguous(), pr0 + lo,
+                                 pc0 + lo)
 
         # ---- actuation + decimation x sim (legged_robot.py:89-99) ----
         anchors = state.contact_ws if self._warm_start else None
-        contact_ws = None
-        if self._sea is not None:
-            # SEA torque drive (anymal.py:71-81): net input per sim dt =
-            # (pos target - q, qd), targets NOT clipped to the soft limits;
-            # the LSTM state advances per sim dt, between kernel launches
-            targets = a * cfg.control.action_scale + self._dflt
-            nq = self.num_dof
-
-            def sea_tau(q, qd, act):
-                tau, (h, c) = self._sea(
-                    (targets - q).reshape(nq * n), qd.reshape(nq * n),
-                    (act["h"].reshape(2, -1, nq * n),
-                     act["c"].reshape(2, -1, nq * n)))
-                return tau.reshape(nq, n), {"h": h.reshape(act["h"].shape),
-                                            "c": c.reshape(act["c"].shape)}
-
-            out = self.chain_engine.step_decimation_torque_fn(
-                state.physics, state.link_params, state.friction, sea_tau,
-                state.actuator_state, contact_patch=contact_patch,
-                anchors=anchors)
-            physics, torques, contact_f, actuator_state = out[:4]
+        if self.chain_engine is None:
+            physics, torques, contact_f, actuator_state, contact_ws = \
+                self._general_physics(state, a, patch, anchors)
         else:
-            targets = torch.clamp(a * cfg.control.action_scale + self._dflt,
-                                  self._soft_lo, self._soft_hi)
-            out = self.chain_engine.step_decimation_pos(
-                state.physics, state.link_params, state.friction, targets,
-                contact_patch=contact_patch, anchors=anchors)
-            physics, torques, contact_f = out[:3]
-            actuator_state = state.actuator_state
-        if self._warm_start:
-            contact_ws = out[-1]
+            physics, torques, contact_f, actuator_state, contact_ws = \
+                self._chain_physics(state, a, contact_patch, anchors)
 
         # ---- post-physics bookkeeping ----
         episode_length = state.episode_length + 1
@@ -860,6 +880,102 @@ class LeggedEnv:
                             else torch.zeros((0, n), dtype=self.dtype,
                                              device=dev)))
         return new_state, tr
+
+    # ------------------------------------------------------------ physics
+
+    def _sea_tau_fn(self, a, n):
+        """The SEA net as ``(q, qd, carry) -> (tau, carry')``: input per sim
+        dt = (pos target - q, qd) with targets NOT clipped to the soft
+        limits (anymal.py:71-81); the LSTM state advances per sim dt."""
+        targets = a * self.cfg.control.action_scale + self._dflt
+        nq = self.num_dof
+
+        def sea_tau(q, qd, act):
+            tau, (h, c) = self._sea(
+                (targets - q).reshape(nq * n), qd.reshape(nq * n),
+                (act["h"].reshape(2, -1, nq * n),
+                 act["c"].reshape(2, -1, nq * n)))
+            return tau.reshape(nq, n), {"h": h.reshape(act["h"].shape),
+                                        "c": c.reshape(act["c"].shape)}
+
+        return sea_tau
+
+    def _chain_physics(self, state, a, contact_patch, anchors):
+        """The policy step's physics on the fused chain step. Returns
+        (physics, torques, body forces, actuator state, anchors)."""
+        if self._sea is not None:
+            # SEA torque drive: one kernel launch per sim dt with the LSTM
+            # evaluated between them
+            out = self.chain_engine.step_decimation_torque_fn(
+                state.physics, state.link_params, state.friction,
+                self._sea_tau_fn(a, state.n), state.actuator_state,
+                contact_patch=contact_patch, anchors=anchors)
+            physics, torques, contact_f, actuator_state = out[:4]
+        else:
+            targets = torch.clamp(
+                a * self.cfg.control.action_scale + self._dflt,
+                self._soft_lo, self._soft_hi)
+            out = self.chain_engine.step_decimation_pos(
+                state.physics, state.link_params, state.friction, targets,
+                contact_patch=contact_patch, anchors=anchors)
+            physics, torques, contact_f = out[:3]
+            actuator_state = state.actuator_state
+        return (physics, torques, contact_f, actuator_state,
+                out[-1] if anchors is not None else None)
+
+    def _general_physics(self, state, a, patch, ws):
+        """The policy step's physics on the general stacked engine:
+        ``decimation`` sim dts with the drive's torque evaluated per sim dt
+        (the JAX package's legged_env.py:770-911). The anchors ``ws``
+        (None without warm start) and the actuator state carry across the
+        sim dts; the sensors are the last sim dt's. Returns (physics,
+        torques, body forces, actuator state, anchors)."""
+        cfg = self.cfg
+        eng = self.engine
+        lp, fric = state.link_params, state.friction
+        scale = cfg.control.action_scale
+        ctrl = cfg.control.control_type
+        phys, act = state.physics, state.actuator_state
+        if self._sea is not None:
+            sea_tau = self._sea_tau_fn(a, state.n)
+        elif ctrl == "P":
+            targets = torch.clamp(a * scale + self._dflt, self._soft_lo,
+                                  self._soft_hi)
+        elif ctrl == "V":
+            # velocity drive (legged_robot.py:385-388): last_qd is the qd
+            # at the end of the previous policy step (refreshed only in
+            # post_physics_step), held over the decimation loop
+            vel_t = a * scale
+            qd_last = state.physics.qd
+        for _ in range(cfg.control.decimation):
+            if self._sea is not None:
+                tau, act = sea_tau(phys.q, phys.qd, act)
+            elif ctrl == "P" and self._uninet is not None:
+                # applied-UniNet extension (the reference discards the
+                # output, go1.py:68-76): dVel enters the PD damping term as
+                # a velocity target
+                dvel, act = self._uninet(targets, phys.q, phys.qd, act)
+                tau = torch.clamp(
+                    self._kp * (targets - phys.q)
+                    - self._kd * (phys.qd - dvel),
+                    self._neg_torque_lim, self._torque_lim)
+            elif ctrl == "P":
+                tau = None
+            elif ctrl == "V":
+                tau = (self._kp * (vel_t - phys.qd)
+                       - self._kd * (phys.qd - qd_last) / cfg.sim.dt)
+            else:                                           # "T"
+                tau = a * scale
+            if tau is None:
+                out = eng.step_pos_targets(phys, lp, fric, targets,
+                                           patch=patch, f_ws=ws)
+            else:
+                out = eng.step_torques(phys, lp, fric, tau, patch=patch,
+                                       f_ws=ws)
+            phys, info = out[0], out[1]
+            if ws is not None:
+                ws = out[2]
+        return phys, info.torques, info.body_forces, act, ws
 
     # ------------------------------------------------------- observations
 

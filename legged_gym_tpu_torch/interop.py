@@ -82,9 +82,9 @@ def env_state_from_jax(state_np, device="cpu"):
     """A JAX ``EnvState`` whose leaves are numpy arrays -> the port's
     EnvState on ``device``. The JAX PRNG key has no counterpart (the port's
     env holds a torch.Generator). The actuator carry (the SEA LSTM's
-    ``{"h", "c"}``, or ``{}``) has the same layout in both. The
-    warm-start anchors (a list of (3, S, K, N) arrays per point group, or
-    None) become the port's packed (3, n_points, N) tensor."""
+    ``{"h", "c"}``, the UniNet history ``{"pos_err", "vel"}``, or ``{}``)
+    has the same layout in both. The warm-start anchors become the port's
+    layout (``anchors_from_jax``)."""
     def t(a):
         a = np.asarray(a)
         return torch.as_tensor(a.copy(), device=device)
@@ -113,10 +113,14 @@ def env_state_from_jax(state_np, device="cpu"):
 
 
 def anchors_from_jax(groups_np, device="cpu"):
-    """The JAX package's anchor carry (per point group (3, S, K, N), or
-    None) -> packed (3, n_points, N) in the kernel's point order."""
+    """The JAX package's anchor carry -> the port's: the chain path's list
+    of per-point-group (3, S, K, N) arrays becomes the packed
+    (3, n_points, N) tensor in the kernel's point order; the general
+    engine's stacked (3, P, N) array is taken as it is; None stays None."""
     if groups_np is None:
         return None
+    if not isinstance(groups_np, (list, tuple)):
+        return torch.as_tensor(np.array(groups_np), device=device)
     return torch.cat([
         torch.as_tensor(np.array(a), device=device).reshape(
             3, -1, np.shape(a)[-1]) for a in groups_np], dim=1).contiguous()

@@ -6,9 +6,10 @@ RBDA (Featherstone 2008) Table 7.1 adapted to a 6-dof floating base
 symmetric 6x6 block Schur solve. Articulated inertia is kept as 3x3
 blocks [[A, B], [B^T, C]]; gravity and contacts enter as external
 wrenches. Link-indexed state is carried as per-link Python lists, as in
-the JAX package. Used by the apparent-mass probe
-(engine.calibrate_contact_mass); the hot path runs the chain layout
-(chain_step.aba_chain). Revolute joints only.
+the JAX package. Used by the general stacked engine (engine.Engine) and
+the apparent-mass probe; the chain paths run the chain layout
+(chain_step.aba_chain). Revolute joints only. Model constants come from
+kinematics.model_consts (built once per device and dtype).
 """
 from __future__ import annotations
 
@@ -17,24 +18,25 @@ import torch
 from legged_gym_tpu_torch.ops import lin
 from legged_gym_tpu_torch.ops.quat import cross
 from legged_gym_tpu_torch.physics.kinematics import (_check_revolute,
-                                                     tree_levels)
+                                                     model_consts)
 
 
 def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
-        gravity=(0.0, 0.0, -9.81), fixed_base=False, implicit_d=None):
+        gravity=None, fixed_base=False, implicit_d=None):
     """Forward dynamics.
 
     inertia_params: (nl, 10, N); fk: kinematics.FK; qd, tau: (nq, N);
     f_ext_w / n_ext_w: optional (3, nl, N) world wrenches about each link
-    origin; implicit_d: optional (nq,) / (nq, 1) / (nq, N) extra
+    origin; gravity: (3, 1, 1) world gravity on fk's device, None for
+    none; implicit_d: optional (nq, 1) / (nq, N) tensor, extra
     joint-space diagonal added to D.
     Returns (a_base (6, N) base-frame spatial acceleration, qdd (nq, N)).
     """
     _check_revolute(model)
     nq, nl = model.nq, model.nl
     dtype, dev = fk.p_w.dtype, fk.p_w.device
+    mc = model_consts(model, dtype, dev)
     n = qd.shape[-1]
-    g_w = torch.as_tensor(gravity, dtype=dtype, device=dev)[:, None, None]
 
     # ---- pass 1: all links at once ----
     par = inertia_params.movedim(1, 0)                       # (10, nl, N)
@@ -53,41 +55,34 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
     f_m = m[None] * v - cross(h, w)
     pA_n = cross(w, n_m) + cross(v, f_m)
     pA_f = cross(w, f_m)
-    g_l = lin.mtv(fk.R_w, g_w.expand(3, nl, n))
-    f_tot = m[None] * g_l
-    n_tot = cross(h, g_l)
+    f_tot = n_tot = 0.0
+    if gravity is not None:
+        g_l = lin.mtv(fk.R_w, gravity.expand(3, nl, n))
+        f_tot = m[None] * g_l
+        n_tot = cross(h, g_l)
     if f_ext_w is not None:
         f_tot = f_tot + lin.mtv(fk.R_w, f_ext_w)
         n_tot = n_tot + lin.mtv(fk.R_w, n_ext_w)
     pA_n = pA_n - n_tot
     pA_f = pA_f - f_tot
 
-    axes_all = torch.as_tensor(model.joint_axis.T, dtype=dtype,
-                               device=dev)[:, :, None]       # (3, nq, 1)
-    Sqd_ang = axes_all * qd[None]
+    Sqd_ang = mc.axes_all * qd[None]                         # (3, nq, N)
     c_ang = cross(w[:, 1:], Sqd_ang)                         # (3, nq, N)
     c_lin = cross(v[:, 1:], Sqd_ang)
 
-    arm = torch.as_tensor(model.armature, dtype=dtype, device=dev)[:, None]
     if implicit_d is not None:
-        imp = torch.as_tensor(implicit_d, dtype=dtype, device=dev)
-        if imp.ndim == 1:
-            imp = imp[:, None]
+        D_extra = (mc.armature + implicit_d).expand(nq, n)
     else:
-        imp = torch.zeros((nq, 1), dtype=dtype, device=dev)
-    D_extra = (arm + imp).expand(nq, n)
+        D_extra = mc.armature.expand(nq, n)
 
-    levels = tree_levels(model)
     IA_cols = [[A[:, :, l], IA_B[:, :, l], IA_C[:, :, l]] for l in range(nl)]
     pA_cols = [[pA_n[:, l], pA_f[:, l]] for l in range(nl)]
 
     # ---- pass 2: inward sweep by level (deepest first) ----
     per_level = {}
-    for idx in levels[::-1]:
-        li = idx + 1
-        pi = model.link_parent[li]
-        axis3 = torch.as_tensor(model.joint_axis[idx].T, dtype=dtype,
-                                device=dev)[:, :, None]
+    for lc in mc.levels[::-1]:
+        idx, li, pi, it = lc.idx, lc.li, lc.pi, lc.idx_t
+        axis3 = lc.axis
         A_l = torch.stack([IA_cols[l][0] for l in li], dim=2)
         B_l = torch.stack([IA_cols[l][1] for l in li], dim=2)
         C_l = torch.stack([IA_cols[l][2] for l in li], dim=2)
@@ -96,21 +91,21 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
 
         Ua = lin.mv(A_l, axis3)
         Ul = lin.mtv(B_l, axis3)
-        D = torch.sum(axis3 * Ua, dim=0) + D_extra[idx]
-        u = tau[idx] - torch.sum(axis3 * pn_l, dim=0)
+        D = torch.sum(axis3 * Ua, dim=0) + D_extra[it]
+        u = tau[it] - torch.sum(axis3 * pn_l, dim=0)
         di = 1.0 / D
         per_level[idx[0]] = (Ua, Ul, di, u)
 
         Ia_A = A_l - di[None, None] * lin.outer(Ua, Ua)
         Ia_B = B_l - di[None, None] * lin.outer(Ua, Ul)
         Ia_C = C_l - di[None, None] * lin.outer(Ul, Ul)
-        ca = c_ang[:, idx]
-        cl = c_lin[:, idx]
+        ca = c_ang[:, it]
+        cl = c_lin[:, it]
         pa_n = pn_l + lin.mv(Ia_A, ca) + lin.mv(Ia_B, cl) + Ua * (di * u)[None]
         pa_f = pf_l + lin.mtv(Ia_B, ca) + lin.mv(Ia_C, cl) + Ul * (di * u)[None]
 
-        R = fk.R_loc[:, :, idx]
-        p = fk.p_loc[:, idx]
+        R = fk.R_loc[:, :, it]
+        p = fk.p_loc[:, it]
         pT = lin.skew(p)
         RA = lin.mm(R, lin.mmt(Ia_A, R))
         RB = lin.mm(R, lin.mmt(Ia_B, R))
@@ -141,17 +136,15 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
     a_cols = [None] * nl
     a_cols[0] = (a0_ang, a0_lin)
     qdd = [None] * nq
-    for idx in levels:
-        li = idx + 1
-        pi = model.link_parent[li]
-        R = fk.R_loc[:, :, idx]
-        p = fk.p_loc[:, idx]
-        axis3 = torch.as_tensor(model.joint_axis[idx].T, dtype=dtype,
-                                device=dev)[:, :, None]
+    for lc in mc.levels:
+        idx, li, pi, it = lc.idx, lc.li, lc.pi, lc.idx_t
+        R = fk.R_loc[:, :, it]
+        p = fk.p_loc[:, it]
+        axis3 = lc.axis
         par_ang = torch.stack([a_cols[pj][0] for pj in pi], dim=1)
         par_lin = torch.stack([a_cols[pj][1] for pj in pi], dim=1)
-        ap_ang = lin.mtv(R, par_ang) + c_ang[:, idx]
-        ap_lin = lin.mtv(R, par_lin + cross(par_ang, p)) + c_lin[:, idx]
+        ap_ang = lin.mtv(R, par_ang) + c_ang[:, it]
+        ap_lin = lin.mtv(R, par_lin + cross(par_ang, p)) + c_lin[:, it]
         Ua, Ul, di, u = per_level[idx[0]]
         qdd_l = di * (u - (torch.sum(Ua * ap_ang, dim=0)
                            + torch.sum(Ul * ap_lin, dim=0)))

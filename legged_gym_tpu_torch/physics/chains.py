@@ -83,7 +83,7 @@ def build_chain_model(model, m_eff, m_eff_t=None, vmax=None,
 
     Raises NotChainStructured if any non-base link has more than one
     child, or any prismatic joint is present (not needed for the
-    supported robots; the general engine handles those).
+    supported robots; the port's general engine is revolute-only too).
     """
     nl = model.nl
     if np.any(model.joint_is_prismatic):

@@ -1,19 +1,32 @@
-"""Contact configuration, the anchored static-friction law and per-link
-wrench accumulation.
+"""Contact laws in the stacked layout (points x envs, batch-last), the
+anchored static-friction law and the per-link / per-body accumulations.
 
-The implicit impulse contact law itself runs inside the fused chain step
-(chain_step.contact_force_from_plane and its CUDA kernel); this module
-keeps the configuration, the anchored tangential law that the plain chain
-step calls when ``warm_start`` is on (kernel variant K4), and the stacked
-wrench accumulation the apparent-mass probe
-(engine.calibrate_contact_mass) needs.
-Friction combine follows PhysX 'average' mode: mu = (mu_env + mu_terrain) / 2.
+The chain paths run the same implicit impulse law inside the fused chain
+step (chain_step.contact_force_from_plane and its CUDA kernel); the
+general stacked engine (engine.Engine) calls ``contact_forces`` and
+``SelfCollision`` here. The anchored tangential law is shared by
+both. Friction combine follows PhysX 'average' mode:
+mu = (mu_env + mu_terrain) / 2. Only the implicit law is ported (the JAX
+package's explicit spring mode is configured by no task).
+
+Every scatter of the JAX package (``.at[...].add``) is a gather here: the
+host builds, once per index list, a padded per-target list of sources in
+source order (``kinematics.source_table``), and the device sums the
+gathered rows (``segment_sum``). No atomics: the result is the same from
+run to run on the card. (The apparent-mass probe's wrenches, one unit
+force per env, sum exactly either way.)
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from legged_gym_tpu_torch.physics.kinematics import (model_consts,
+                                                     source_table)
+from legged_gym_tpu_torch.terrain.heightfield import (patch_sample_bilinear,
+                                                      sample_bilinear)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,18 +118,182 @@ def anchored_tangential(cfg, cp_pos, fn_mag, mu, vt_vec, n_vec, m_t, dt,
     return f_t, new_anchor
 
 
+def contact_forces(model, grid, cfg, cp_pos, cp_vel, friction, dt, m_eff,
+                   m_eff_t=None, v_max=None, f_prev=None, patch=None,
+                   k_static=None):
+    """Per-point world contact forces against the terrain (stacked layout),
+    the implicit impulse law of the JAX package's ``contact_forces``.
+
+    Args:
+      model: RobotModel; grid: TerrainGrid or None (plane z = 0);
+      cfg: ContactConfig; cp_pos / cp_vel: (3, P, N) world position /
+      velocity of the collision points; friction: (N,) per-env friction;
+      dt: substep length; m_eff: (P, 1) apparent mass per point; m_eff_t:
+      (P, 1) tangential apparent mass; v_max: (P, 1) per-point pushout
+      cap (else cfg.max_pushout_vel); f_prev: (3, P, N) anchors when
+      cfg.warm_start; patch: per-env TerrainPatch (windowed sampling);
+      k_static: (P, 1) one-way support spring stiffness. The (P, 1)
+      constants are tensors on cp_pos's device.
+
+    Returns f_pts (3, P, N); with cfg.warm_start and f_prev given,
+    (f_pts, new_anchors (3, P, N)).
+    """
+    x, y, z = cp_pos[0], cp_pos[1], cp_pos[2]            # (P, N)
+    if patch is not None and grid is not None:
+        h, dhdx, dhdy = patch_sample_bilinear(grid, patch, x, y)
+    else:
+        h, dhdx, dhdy = sample_bilinear(grid, x, y)
+
+    # unit terrain normal
+    inv_norm = 1.0 / torch.sqrt(1.0 + dhdx * dhdx + dhdy * dhdy)
+    nx, ny, nz = -dhdx * inv_norm, -dhdy * inv_norm, inv_norm
+
+    mc = model_consts(model, cp_pos.dtype, cp_pos.device)
+    depth = mc.cp_radius + (h - z) * nz                  # signed penetration
+    active = depth > 0.0
+
+    vx, vy, vz = cp_vel[0], cp_vel[1], cp_vel[2]
+    v_n = vx * nx + vy * ny + vz * nz
+    me = m_eff
+    # direction-aware apparent mass: harmonic blend of the normal and the
+    # tangential mass by the normal's tilt
+    if m_eff_t is not None:
+        me = 1.0 / (nz * nz / me + (1.0 - nz * nz) / m_eff_t)
+    v_push = cfg.baumgarte * depth / dt
+    if v_max is None:
+        v_push = torch.clamp_max(v_push, cfg.max_pushout_vel)
+    else:
+        v_push = torch.minimum(v_push, v_max)
+    fn_raw = (me / dt) * torch.clamp_min(v_push - v_n, 0.0)
+    if k_static is not None:
+        # one-way static-support spring, depth saturated at 15 mm, off
+        # while the point separates faster than 5 cm/s
+        fn_raw = fn_raw + (k_static * torch.clamp_max(depth, 0.015)
+                           * (v_n < 0.05))
+    fn_mag = torch.where(active, fn_raw, 0.0)
+
+    # tangential velocity and regularized Coulomb friction
+    vtx = vx - v_n * nx
+    vty = vy - v_n * ny
+    vtz = vz - v_n * nz
+    vt = torch.sqrt(vtx * vtx + vty * vty + vtz * vtz)
+    mu = 0.5 * (friction[None, :] + cfg.terrain_friction)
+    ft_over_vt = mu * fn_mag / (vt + cfg.slip_velocity)
+    # impulse cap: one substep can at most stop the slip (tangential mass)
+    met = me if m_eff_t is None else m_eff_t
+    ft_over_vt = torch.minimum(ft_over_vt, met / dt)
+
+    if cfg.warm_start and f_prev is not None:
+        f, ax = anchored_tangential(
+            cfg, cp_pos, fn_mag, mu, torch.stack([vtx, vty, vtz]),
+            torch.stack([nx, ny, nz]), met, dt, f_prev, depth=depth)
+        return f + fn_mag[None] * torch.stack([nx, ny, nz]), ax
+
+    fx = fn_mag * nx - ft_over_vt * vtx
+    fy = fn_mag * ny - ft_over_vt * vty
+    fz = fn_mag * nz - ft_over_vt * vtz
+    return torch.stack([fx, fy, fz])                     # (3, P, N)
+
+
+def segment_sum(x, table):
+    """x: (C, S, ...) sources; table: (T, W) long
+    ``kinematics.source_table`` on x's device -> (C, T, ...) per-target
+    sums, in the same order every run."""
+    zero = torch.zeros_like(x[:, :1])
+    return torch.cat([x, zero], dim=1)[:, table].sum(dim=2)
+
+
+def accumulate_body_forces(model, f_pts):
+    """Per-report-body net contact force (3, nb, N): the analogue of
+    Isaac's net_contact_force tensor."""
+    mc = model_consts(model, f_pts.dtype, f_pts.device)
+    return segment_sum(f_pts, mc.body_table)
+
+
 def accumulate_link_wrenches(model, fk, cp_pos, f_pts):
     """World wrenches (force (3, nl, N), torque about link origin
-    (3, nl, N)) accumulated per link by index_add."""
-    li = torch.as_tensor(model.cp_link, dtype=torch.long,
-                         device=cp_pos.device)
-    arm = cp_pos - fk.p_w[:, li]                         # (3, P, N)
+    (3, nl, N)) accumulated per link."""
+    mc = model_consts(model, cp_pos.dtype, cp_pos.device)
+    arm = cp_pos - fk.p_w[:, mc.cp_link]                 # (3, P, N)
     n = torch.stack([
         arm[1] * f_pts[2] - arm[2] * f_pts[1],
         arm[2] * f_pts[0] - arm[0] * f_pts[2],
         arm[0] * f_pts[1] - arm[1] * f_pts[0],
     ])
-    shape = (3, model.nl) + tuple(f_pts.shape[2:])
-    link_f = torch.zeros(shape, dtype=f_pts.dtype, device=f_pts.device)
-    link_n = torch.zeros_like(link_f)
-    return link_f.index_add(1, li, f_pts), link_n.index_add(1, li, n)
+    fn = segment_sum(torch.cat([f_pts, n], dim=0), mc.link_table)
+    return fn[:3], fn[3:]
+
+
+# ------------------------------------------------------------ self-collision
+
+def self_collision_candidate_pairs(model):
+    """Host-side candidate pair list for sphere-set self-collision
+    (Isaac asset.self_collisions == 0, legged_robot.py:711-720): all
+    collision-point pairs on distinct links that are not parent and child,
+    the base excluded (its contact force is the termination signal, and
+    the coarse base / thigh spheres would fire where PhysX's hulls never
+    touch). Returns (Q, 2) int32 point-index pairs, i < j."""
+    P = len(model.cp_link)
+    pairs = []
+    for i in range(P):
+        for j in range(i + 1, P):
+            li, lj = int(model.cp_link[i]), int(model.cp_link[j])
+            if li == lj:
+                continue
+            if (model.link_parent[li] == lj
+                    or model.link_parent[lj] == li):
+                continue
+            if li == 0 or lj == 0:
+                continue
+            pairs.append((i, j))
+    return np.array(pairs, np.int32).reshape(-1, 2)
+
+
+class SelfCollision:
+    """Frictionless sphere-sphere self-contact of one pair list with the
+    terrain's implicit impulse law: stop the approach velocity plus a
+    capped pushout bias, scaled by the pair's reduced apparent mass (the
+    JAX package's ``self_collision_forces``). Its constants are built once
+    on ``device`` in ``dtype``; the engine keeps one per (device, dtype).
+
+    pairs: (Q, 2) point pairs (self_collision_candidate_pairs, possibly
+    rest-filtered); m_eff: (P,) calibrated apparent masses."""
+
+    def __init__(self, model, pairs, m_eff, dtype=torch.float32,
+                 device="cpu"):
+        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        i, j = pairs[:, 0], pairs[:, 1]
+        # the reduced mass and the radius sums in float32 from float32
+        # inputs, as the JAX package computes them on the device
+        me = np.maximum(np.asarray(m_eff, np.float32), np.float32(1e-6))
+        m_ij = np.float32(1.0) / (np.float32(1.0) / me[i]
+                                  + np.float32(1.0) / me[j])
+        r = np.asarray(model.cp_radius, np.float32)
+
+        def t(a, dt=dtype):
+            return torch.as_tensor(a, dtype=dt, device=device)
+
+        self.i, self.j = t(i, torch.long), t(j, torch.long)
+        self.rsum = t(r[i] + r[j])[:, None]
+        self.m_ij = t(m_ij)[:, None]
+        # sources 0..Q-1 carry +f to point i, Q..2Q-1 carry -f to point j:
+        # per point its +f terms in pair order, then its -f terms
+        self.table = t(source_table(np.concatenate([i, j]),
+                                    len(model.cp_link)), torch.long)
+
+    def __call__(self, cp_pos, cp_vel, dt, v_max=0.2):
+        """cp_pos / cp_vel: (3, P, N). Returns f_pts (3, P, N) to add to
+        the terrain contact forces."""
+        i, j = self.i, self.j
+        d = cp_pos[:, i] - cp_pos[:, j]                 # (3, Q, N)
+        dist = torch.sqrt(torch.sum(d * d, dim=0) + 1e-12)
+        nrm = d / dist[None]
+        overlap = self.rsum - dist
+        v_rel = cp_vel[:, i] - cp_vel[:, j]
+        v_n = torch.sum(nrm * v_rel, dim=0)             # + = separating
+        bias = torch.clamp_max(overlap / dt, v_max)
+        jmag = torch.where(overlap > 0.0,
+                           self.m_ij * torch.clamp_min(bias - v_n, 0.0) / dt,
+                           0.0)                         # (Q, N)
+        f = nrm * jmag[None]                            # (3, Q, N)
+        return segment_sum(torch.cat([f, -f], dim=1), self.table)

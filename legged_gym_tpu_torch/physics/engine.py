@@ -1,12 +1,20 @@
-"""Engine constants: the PD gains, the implicit joint-space diagonal and
-the calibrated per-contact-point apparent masses that the fused chain
-step (chain_engine.py / chain_step.py) is built from.
+"""The physics engine: constants, the apparent-mass probe and the general
+stacked sim step (PD or held-torque drive + contact + self-collision +
+body damping + ABA + integration), in plain torch ops on an explicit
+device, batch-last.
 
-Only the constructor and the apparent-mass probe of the JAX package's
-``physics/engine.py`` are ported here; its general stacked step
-(``_substep`` / ``step_pos_targets`` / ``step_torques``) is later work.
-The probe runs once at construction on the CPU in float32 whatever device
-the env simulates on: its results are host-side constants.
+A sim step is ``(state, params, targets | torques) -> (state', SimInfo)``
+over ``sim.substeps`` inner substeps (``step_pos_targets`` /
+``step_torques``). The env takes this general engine where the fused
+chain step (chain_engine.py / chain_step.py, the CUDA kernel on the card)
+does not apply: self-collision, per-link body damping, V / T control, an
+applied UniNet, or ``sim.use_chain_engine = False``. The chain step is
+held against it (tests/test_torch_general.py).
+
+The apparent-mass probe and the self-collision rest filter run once at
+construction on the CPU in float32 whatever device the env simulates on:
+their results are host-side constants. Every per-step constant is built
+once per (device, dtype) (``Engine.consts``).
 """
 from __future__ import annotations
 
@@ -15,9 +23,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from legged_gym_tpu_torch.ops import lin
 from legged_gym_tpu_torch.physics.aba import aba
 from legged_gym_tpu_torch.physics.contact import (ContactConfig,
-                                                  accumulate_link_wrenches)
+                                                  SelfCollision,
+                                                  accumulate_body_forces,
+                                                  accumulate_link_wrenches,
+                                                  contact_forces,
+                                                  self_collision_candidate_pairs)
 from legged_gym_tpu_torch.physics.integrator import integrate
 from legged_gym_tpu_torch.physics.kinematics import (contact_point_kinematics,
                                                      forward_kinematics)
@@ -43,17 +56,35 @@ class SimConfig:
     armature_floor: float = 0.005
 
 
-class Engine:
-    """Host-side constants of one robot model under one SimConfig."""
+@dataclasses.dataclass(frozen=True)
+class SimInfo:
+    body_forces: torch.Tensor   # (3, nb, N) net contact force per report body
+    torques: torch.Tensor       # (nq, N) applied joint torques (sensor)
 
-    def __init__(self, model, sim: SimConfig, kp=None, kd=None,
-                 fixed_base=False, self_collision=False):
-        if self_collision and len(model.cp_link):
-            raise NotImplementedError(
-                "self-collision needs the general engine, not ported yet")
+
+class Engine:
+    """One robot model under one SimConfig: host-side constants and the
+    general stacked sim step."""
+
+    def __init__(self, model, sim: SimConfig, grid=None, kp=None, kd=None,
+                 fixed_base=False, lin_damping=0.0, ang_damping=0.0,
+                 self_collision=False):
+        """grid: TerrainGrid or None (plane). lin_damping / ang_damping:
+        Isaac asset linear_damping / angular_damping, a mass- and
+        inertia-proportional drag wrench per link (f = -c m v,
+        n = -c I w). self_collision: Isaac asset.self_collisions == 0,
+        sphere-set self-contact between points of distinct non-adjacent
+        links (the candidate pairs; filter_self_collision_pairs drops
+        those at rest overlap)."""
         self.model = model
         self.sim = sim
+        self.grid = grid
         self.fixed_base = fixed_base
+        self.lin_damping = float(lin_damping)
+        self.ang_damping = float(ang_damping)
+        self.sc_pairs = None
+        if self_collision and len(model.cp_link):
+            self.sc_pairs = self_collision_candidate_pairs(model)
         nq = model.nq
         self.kp = np.zeros(nq) if kp is None else np.asarray(kp, float)
         self.kd = np.zeros(nq) if kd is None else np.asarray(kd, float)
@@ -108,6 +139,40 @@ class Engine:
         # the same without the PD servo: what a torque-driven joint sees
         self._imp_passive = (self.dt_inner * np.asarray(model.dof_damping)
                              + sim.armature_floor)[:, None]
+        self._has_joint_damping = bool(np.any(model.dof_damping != 0.0))
+        self._dev = {}
+
+    @property
+    def has_self_collision(self):
+        return self.sc_pairs is not None and len(self.sc_pairs) > 0
+
+    def filter_self_collision_pairs(self, q0, margin=1.2):
+        """Drop the self-collision candidate pairs at or near overlap in
+        the default pose ``q0``: the sphere set over-approximates the
+        collision meshes near the hips, and a rest-pose overlap would
+        inject permanent forces. A pair is kept if its rest center
+        distance exceeds ``margin`` times the radius sum. One FK on the
+        CPU in float32."""
+        if not self.has_self_collision:
+            return
+        m = self.model
+        dtype = torch.float32
+        pos = torch.zeros((3, 1), dtype=dtype)
+        pos[2] = 100.0
+        quat = torch.tensor([[0.0], [0.0], [0.0], [1.0]], dtype=dtype)
+        phys = PhysicsState(
+            pos=pos, quat=quat, vel=torch.zeros((6, 1), dtype=dtype),
+            q=torch.as_tensor(np.asarray(q0), dtype=dtype)[:, None],
+            qd=torch.zeros((m.nq, 1), dtype=dtype))
+        with torch.no_grad():
+            cp_pos, _ = contact_point_kinematics(
+                m, forward_kinematics(m, phys))
+        p = cp_pos[:, :, 0].numpy()                          # (3, P)
+        i, j = self.sc_pairs[:, 0], self.sc_pairs[:, 1]
+        dist = np.linalg.norm(p[:, i] - p[:, j], axis=0)
+        rsum = m.cp_radius[i] + m.cp_radius[j]
+        self.sc_pairs = self.sc_pairs[dist > margin * rsum]
+        self._dev = {}
 
     def calibrate_contact_mass(self, q0, inertia_params_fn, safety=0.7,
                                drive="pd"):
@@ -157,8 +222,8 @@ class Engine:
             cp_pos, _ = contact_point_kinematics(m, fk)
             link_f, link_n = accumulate_link_wrenches(m, fk, cp_pos, f_pts)
             a0, qdd = aba(m, params, fk, phys.qd, tau, f_ext_w=link_f,
-                          n_ext_w=link_n, gravity=(0.0, 0.0, 0.0),
-                          fixed_base=self.fixed_base, implicit_d=implicit_d)
+                          n_ext_w=link_n, fixed_base=self.fixed_base,
+                          implicit_d=implicit_d)
             new = integrate(phys, a0, qdd, self.dt_inner)
             _, cp_vel2 = contact_point_kinematics(
                 m, forward_kinematics(m, new))
@@ -181,3 +246,153 @@ class Engine:
         # four-foot share of the weight at 5 mm depth
         W = self.model.total_mass * 9.81
         self.cp_k_static = np.full(P, 1.2 * 0.3 * W / 0.005)
+        self._dev = {}
+
+    # ------------------------------------------------------ the sim step
+
+    def consts(self, dtype, device):
+        """Per-step constants on ``device``: built on the first call for
+        each (device, dtype), after the probe and the pair filter."""
+        key = (str(device), dtype)
+        if key in self._dev:
+            return self._dev[key]
+        m, sim = self.model, self.sim
+
+        def col(a):
+            return torch.as_tensor(np.asarray(a, float), dtype=dtype,
+                                   device=device)[:, None]
+
+        lim = col(self.torque_limit)
+        vcap = (col(m.dof_vel_limit * sim.vel_limit_scale)
+                if sim.vel_limit_scale else None)
+        c = {
+            "kp": col(self.kp),
+            "kd_eff": col(self.kd + self.dt_inner * self.kp),
+            "lim": lim, "neg_lim": -lim,
+            "imp_pd": col(self._imp_pd[:, 0]),
+            "imp_passive": col(self._imp_passive[:, 0]),
+            "dof_damping": col(m.dof_damping),
+            "lower": col(m.dof_lower), "upper": col(m.dof_upper),
+            "vcap": vcap,
+            "m_eff": col(self.cp_m_eff), "m_eff_t": col(self.cp_m_eff_t),
+            "vmax": col(self.cp_vmax), "k_static": col(self.cp_k_static),
+            "gravity": torch.as_tensor(sim.gravity, dtype=dtype,
+                                       device=device)[:, None, None],
+            "sc": (SelfCollision(m, self.sc_pairs, self.cp_m_eff, dtype,
+                                 device)
+                   if self.has_self_collision else None),
+        }
+        self._dev[key] = c
+        return c
+
+    def _substep(self, state, inertia_params, friction, tau_fn, implicit_d,
+                 patch=None, f_ws=None):
+        """One inner substep: FK, contact kinematics and forces (terrain,
+        then self-contact), link wrenches and body forces, body damping,
+        joint damping, the joint-limit spring-damper (implicitly damped
+        when active), ABA, the capped integration with hard limits.
+        Returns (state', SimInfo, anchors' or None)."""
+        m, sim = self.model, self.sim
+        c = self.consts(state.pos.dtype, state.pos.device)
+        fk = forward_kinematics(m, state)
+        ws_out = None
+        if len(m.cp_link):
+            cp_pos, cp_vel = contact_point_kinematics(m, fk)
+            out = contact_forces(m, self.grid, sim.contact, cp_pos, cp_vel,
+                                 friction, dt=self.dt_inner,
+                                 m_eff=c["m_eff"], m_eff_t=c["m_eff_t"],
+                                 v_max=c["vmax"], f_prev=f_ws, patch=patch,
+                                 k_static=c["k_static"])
+            f_pts, ws_out = out if isinstance(out, tuple) else (out, None)
+            if c["sc"] is not None:
+                f_pts = f_pts + c["sc"](cp_pos, cp_vel, self.dt_inner)
+            link_f, link_n = accumulate_link_wrenches(m, fk, cp_pos, f_pts)
+            body_forces = accumulate_body_forces(m, f_pts)
+        else:
+            link_f = link_n = None
+            body_forces = torch.zeros((3, m.num_bodies, state.n),
+                                      dtype=state.pos.dtype,
+                                      device=state.pos.device)
+        if self.lin_damping != 0.0 or self.ang_damping != 0.0:
+            # PhysX body damping analog: drag wrenches per link about its
+            # origin, in the world frame (fk velocities are link-frame)
+            par = inertia_params.movedim(1, 0)               # (10, nl, N)
+            v_w = lin.mv(fk.R_w, fk.v_lin)                   # (3, nl, N)
+            f_d = -self.lin_damping * par[0][None] * v_w
+            w = fk.v_ang
+            Iw = torch.stack([
+                par[4] * w[0] + par[5] * w[1] + par[6] * w[2],
+                par[5] * w[0] + par[7] * w[1] + par[8] * w[2],
+                par[6] * w[0] + par[8] * w[1] + par[9] * w[2]])
+            n_d = -self.ang_damping * lin.mv(fk.R_w, Iw)
+            link_f = f_d if link_f is None else link_f + f_d
+            link_n = n_d if link_n is None else link_n + n_d
+        tau = tau_fn(state)
+        tau_total = tau
+        if self._has_joint_damping:
+            tau_total = tau_total - c["dof_damping"] * state.qd
+        k_lim, c_lim = sim.limit_stiffness, sim.limit_damping
+        if k_lim > 0:
+            over = torch.clamp_min(state.q - c["upper"], 0.0)
+            under = torch.clamp_min(c["lower"] - state.q, 0.0)
+            active = ((over > 0) | (under > 0)).to(state.pos.dtype)
+            tau_total = tau_total + k_lim * (under - over) \
+                - c_lim * active * state.qd
+            implicit_d = implicit_d + self.dt_inner * (
+                c_lim + self.dt_inner * k_lim) * active
+        a0, qdd = aba(m, inertia_params, fk, state.qd, tau_total,
+                      f_ext_w=link_f, n_ext_w=link_n, gravity=c["gravity"],
+                      fixed_base=self.fixed_base, implicit_d=implicit_d)
+        new_state = integrate(state, a0, qdd, self.dt_inner,
+                              qd_cap=c["vcap"],
+                              base_ang_cap=sim.max_base_ang_vel,
+                              base_lin_cap=sim.max_base_lin_vel,
+                              q_lower=c["lower"], q_upper=c["upper"])
+        return new_state, SimInfo(body_forces=body_forces, torques=tau), \
+            ws_out
+
+    def _run_substeps(self, state, inertia_params, friction, tau_fn,
+                      implicit_d, patch=None, f_ws=None):
+        """``sim.substeps`` substeps; the anchors (when ``f_ws`` is given)
+        carry across them; the sensors are the last substep's."""
+        info = None
+        for _ in range(self.sim.substeps):
+            state, info, ws = self._substep(state, inertia_params, friction,
+                                            tau_fn, implicit_d, patch=patch,
+                                            f_ws=f_ws)
+            if f_ws is not None:
+                f_ws = ws
+        if f_ws is not None:
+            return state, info, f_ws
+        return state, info
+
+    def step_pos_targets(self, state, inertia_params, friction, targets,
+                         patch=None, f_ws=None):
+        """Position-drive sim step (reference legged_robot.py:93-96): the
+        clipped PD torque to ``targets`` (nq, N), re-evaluated every
+        substep, with the servo's implicit damping. patch: per-env
+        TerrainPatch; f_ws: (3, P, N) anchors (warm start). Returns
+        (state', SimInfo[, anchors'])."""
+        c = self.consts(state.pos.dtype, state.pos.device)
+        kp, kd_eff = c["kp"], c["kd_eff"]
+
+        def tau_fn(s):
+            return torch.clamp(kp * (targets - s.q) - kd_eff * s.qd,
+                               c["neg_lim"], c["lim"])
+
+        return self._run_substeps(state, inertia_params, friction, tau_fn,
+                                  c["imp_pd"], patch=patch, f_ws=f_ws)
+
+    def step_torques(self, state, inertia_params, friction, tau, patch=None,
+                     f_ws=None):
+        """Torque-drive sim step: ``tau`` (nq, N) held over the sim dt,
+        clipped to the URDF effort limits (reference
+        _compute_torques:392), with the passive joint impedance."""
+        c = self.consts(state.pos.dtype, state.pos.device)
+        tau_c = torch.clamp(tau, c["neg_lim"], c["lim"])
+
+        def tau_fn(s):
+            return tau_c
+
+        return self._run_substeps(state, inertia_params, friction, tau_fn,
+                                  c["imp_passive"], patch=patch, f_ws=f_ws)

@@ -2,8 +2,10 @@
 analog of the reference's ``task_registry``, task_registry.py:30-170):
 ``make_env`` builds the environment, ``make_runner`` the PPO runner with
 run-dir / resume handling. Registration order matches the reference's
-envs/__init__.py:52-59. ``anymal_c_flat`` (self-collision) is registered
-and raises NotImplementedError when built: it needs the general engine."""
+envs/__init__.py:52-59. Every task builds; the env picks its physics path
+(the fused chain step, or the general stacked engine for
+``anymal_c_flat``'s self-collision and the other cases in
+envs/legged_env.py)."""
 from __future__ import annotations
 
 import os

@@ -12,8 +12,9 @@ the top kernels by device time. Writes a Chrome trace under chiprun_out/.
 With ``--train`` the unit is one PPO iteration (24-step rollout, GAE, 20
 minibatch steps) through ``registry.make_runner``: go1 on rough terrain at
 1800 envs, or any other task as registered (aliengo, cassie, anymal_c_rough,
-... at their own 4096 envs); the rollout / update split comes from a second,
-unprofiled window; no trace is written unless asked.
+anymal_c_flat on the general engine, ... at their own 4096 envs); the
+rollout / update split comes from a second, unprofiled window; the profiled
+window records device activity only; no trace is written unless asked.
 """
 from __future__ import annotations
 
@@ -122,8 +123,9 @@ def profile_train(args):
           f"update {1e3 * sum(t['update_s'] for t in times) / it:.1f} ms "
           f"({torch.cuda.get_device_name(0)})")
     runner.learn_fn.profile = False
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: an iteration of the general engine issues
+    # millions of host ops, whose CPU events would dwarf the device's
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.learn(args.iterations)
         torch.cuda.synchronize()

@@ -5,12 +5,13 @@
   (legged_robot.py:842-852);
 - ``sample_bilinear``: C0 height + analytic in-cell gradient;
 - per-env windows: ``extract_patches`` / ``PatchExtractor`` cut one
-  (S, S) window per env by a plain gather, and ``patch_sample_min3``
-  evaluates the scan rule against it.
+  (S, S) window per env by a plain gather; ``patch_sample_min3`` (the
+  scan rule) and ``patch_sample_bilinear`` (the general engine's contact
+  sampling, with the trimesh wall rule) evaluate against it.
 
 ``None`` grid means an infinite flat plane at z=0. The JAX package builds
-the windows from a superblock table and one-hot contractions, a TPU
-workaround; a gather gives the same values.
+the windows from a superblock table and queries them by one-hot
+contractions, TPU workarounds; gathers give the same values.
 """
 from __future__ import annotations
 
@@ -156,3 +157,61 @@ def patch_sample_min3(grid, patch, x, y):
     n = h.shape[0]
     env = torch.arange(n, device=h.device)[None, :]
     return m3.reshape(n, S * S)[env, ix * S + iy]
+
+
+def _patch_gather(flat, env, ix, iy, S):
+    """flat: (N, S*S) window heights; (P, N) cell indices -> (P, N)."""
+    return flat[env, ix * S + iy]
+
+
+def patch_sample_bilinear(grid, patch, x, y):
+    """(h, dh/dx, dh/dy) at world (x, y) [(P, N) each] against the per-env
+    patch: four corner gathers, then the JAX package's one-hot contraction
+    order (rows weighted first, then columns). Equal to sample_bilinear
+    away from the patch edges; with ``grid.wall_thresh > 0`` the
+    vertical-face rule reads the window's wall grid (``_wall_grid``)."""
+    if grid is None or patch is None:
+        return sample_bilinear(grid, x, y)
+    h_w = patch.h                                          # (N, S, S)
+    S = h_w.shape[-1]
+    n = h_w.shape[0]
+    flat = h_w.reshape(n, S * S)
+    env = torch.arange(n, device=h_w.device)[None, :]
+    ix, iy, tx, ty = _patch_coords(grid, patch, x, y)
+    h00 = _patch_gather(flat, env, ix, iy, S)
+    h10 = _patch_gather(flat, env, ix + 1, iy, S)
+    h01 = _patch_gather(flat, env, ix, iy + 1, S)
+    h11 = _patch_gather(flat, env, ix + 1, iy + 1, S)
+    inv_hs = 1.0 / grid.horizontal_scale
+    # row contraction at the two query columns, then the column one
+    t0 = h00 * (1.0 - tx) + h10 * tx
+    t1 = h01 * (1.0 - tx) + h11 * tx
+    h = t0 * (1.0 - ty) + t1 * ty
+    dhdy = t0 * -inv_hs + t1 * inv_hs
+    g0 = h00 * -inv_hs + h10 * inv_hs
+    g1 = h01 * -inv_hs + h11 * inv_hs
+    dhdx = g0 * (1.0 - ty) + g1 * ty
+    if grid.wall_thresh > 0.0:
+        mw = _wall_grid(h_w, grid.wall_thresh).reshape(n, S * S)
+        mq = _patch_gather(mw, env, ix, iy, S)
+        steep = mq < h
+        h = torch.where(steep, mq, h)
+        dhdx = torch.where(steep, 0.0, dhdx)
+        dhdy = torch.where(steep, 0.0, dhdy)
+    return h, dhdx, dhdy
+
+
+_WALL_BIG = 1e9
+
+
+def _wall_grid(h, wall_thresh):
+    """Per-cell wall grid for the trimesh vertical-face rule: entry
+    (r, c) = min of the cell's 4 corners when the corner spread exceeds
+    ``wall_thresh``, else +BIG. Elementwise shifts only; the last row /
+    column is never a query cell (floor coords are clamped to S-2)."""
+    hr = torch.cat([h[..., 1:, :], h[..., -1:, :]], dim=-2)
+    hc = torch.cat([h[..., :, 1:], h[..., :, -1:]], dim=-1)
+    hrc = torch.cat([hc[..., 1:, :], hc[..., -1:, :]], dim=-2)
+    m4 = torch.minimum(torch.minimum(h, hr), torch.minimum(hc, hrc))
+    big4 = torch.maximum(torch.maximum(h, hr), torch.maximum(hc, hrc))
+    return torch.where(big4 - m4 > wall_thresh, m4, _WALL_BIG)

@@ -205,7 +205,9 @@ def test_general_tree_dynamics(go1):
                          jnp.asarray(tau), f_ext_w=jf, n_ext_w=jn,
                          implicit_d=imp)
     ta0, tqdd = aba.aba(tm, lp, tfk, ts.qd, torch.as_tensor(tau),
-                        f_ext_w=tf, n_ext_w=tn, implicit_d=imp)
+                        f_ext_w=tf, n_ext_w=tn,
+                        gravity=torch.tensor([0.0, 0.0, -9.81]).view(3, 1, 1),
+                        implicit_d=torch.as_tensor(imp)[:, None])
     _close(ja0, ta0, atol=1e-3, rtol=1e-4)
     _close(jqdd, tqdd, atol=1e-3, rtol=1e-4)
     jn_ = jintegrator.integrate(js, ja0, jqdd, 0.005)

@@ -21,6 +21,9 @@ import torch
 from legged_gym_tpu import assets as jax_assets
 from legged_gym_tpu import registry as jax_registry
 from legged_gym_tpu.actuators.sea_lstm import SEANet as JaxSEANet
+from legged_gym_tpu.model.robot import compile_model as jax_compile_model
+from legged_gym_tpu.physics.engine import Engine as JaxEngine
+from legged_gym_tpu.physics.engine import SimConfig as JaxSimConfig
 from legged_gym_tpu.physics import chain_step as jax_chain_step
 from legged_gym_tpu.physics.pallas_step import run_decimation_pallas
 from legged_gym_tpu_torch import assets as torch_assets
@@ -52,7 +55,9 @@ def _cfg(reg, task, n=N):
     cfg.env.num_envs = n
     cfg.terrain.num_rows = 2
     cfg.terrain.num_cols = 2
-    cfg.asset.self_collisions = 1   # self-contact needs the general engine
+    # no self-contact: anymal_c_flat stays on the chain path (K3 + K4);
+    # as registered it runs on the general engine (test_torch_general_env)
+    cfg.asset.self_collisions = 1
     cfg.noise.add_noise = False
     cfg.domain_rand.push_robots = False
     cfg.domain_rand.randomize_friction = False
@@ -243,10 +248,27 @@ def test_anymal_b_layout_and_constants():
     _check_constants(*_pair("anymal_b"), (3, 4, 8, (0, 2, 3), 17))
 
 
-def test_anymal_c_flat_as_registered_needs_the_general_engine():
+def test_anymal_c_flat_as_registered_builds_on_the_general_engine():
+    """anymal_c_flat as registered (self-collision on) builds on the
+    general stacked engine with the JAX package's rest-filtered pair list
+    and its stacked (3, P, N) anchors; no chain engine, no kernel."""
     assert torch_registry.task_names() == jax_registry.task_names()
-    with pytest.raises(NotImplementedError, match="self-collision"):
-        torch_registry.make_env("anymal_c_flat", device="cpu")
+    tenv, cfg = torch_registry.make_env("anymal_c_flat", device="cpu")
+    assert cfg.asset.self_collisions == 0 and tenv.num_envs == 4096
+    assert tenv.chain_engine is None
+    assert tenv.general_reasons == ["self-collision"]
+    assert tenv._sea is not None and tenv._warm_start
+    jm = jax_compile_model(
+        jax_assets.resolve(cfg.asset.file),
+        collapse_fixed_joints=cfg.asset.collapse_fixed_joints,
+        armature=cfg.asset.armature)
+    je = JaxEngine(jm, JaxSimConfig(), self_collision=True)
+    je.filter_self_collision_pairs(tenv.default_dof_pos)
+    np.testing.assert_array_equal(tenv.engine.sc_pairs, je.sc_pairs)
+    assert je.sc_pairs.shape == (150, 2)
+    ws = tenv._init_contact_ws(3)
+    assert tuple(ws.shape) == (3, 22, 3)
+    assert (ws == torch_contact.ANCHOR_SENTINEL).all()
 
 
 # ---------------------------------------------------------- the plain K3

@@ -30,7 +30,9 @@ N = 4
 def _cfg(reg):
     cfg, _ = reg.get_cfgs("anymal_c_flat")
     cfg.env.num_envs = N
-    cfg.asset.self_collisions = 1   # self-contact needs the general engine
+    # no self-contact, so that both packages run the chain path (K3 + K4);
+    # as registered it runs on the general engine (test_torch_general_env)
+    cfg.asset.self_collisions = 1
     cfg.noise.add_noise = False
     cfg.domain_rand.push_robots = False
     cfg.domain_rand.randomize_friction = False
