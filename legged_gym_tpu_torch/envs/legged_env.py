@@ -15,8 +15,9 @@ them:
   that should take the chain path and cannot build it raises.
 Plane, heightfield or trimesh terrain; with or without warm-start friction
 anchors (per point group on the chain path, one stacked (3, P, N) array on
-the general engine). Privileged observations raise NotImplementedError.
-The env simulates exactly ``num_envs`` envs.
+the general engine). With ``env.num_privileged_obs`` set, each Transition
+also carries the asymmetric critic's privileged observations. The env
+simulates exactly ``num_envs`` envs.
 
 Layout: internal tensors are batch-LAST; the policy boundary (obs /
 actions) is batch-first. Random draws come from one ``torch.Generator``
@@ -111,6 +112,8 @@ class Transition:
     max_command_x: torch.Tensor      # () float
     torques: torch.Tensor            # (nq, N) applied joint torques
     feet_contact_z: torch.Tensor     # (nf, N) vertical foot contact force
+    # (N, num_privileged_obs) for an asymmetric critic, else None
+    privileged_obs: Optional[torch.Tensor] = None
 
 
 def _match_gains(dof_names, table, kind):
@@ -125,11 +128,6 @@ def _match_gains(dof_names, table, kind):
             print(f"[legged_env] PD gain of joint {name} not in {kind} dict "
                   "-> 0 (reference legged_robot.py:700-707)")
     return out
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported to legged_gym_tpu_torch "
-                               "yet (see ROADMAP.md Queue 1)")
 
 
 class LeggedEnv:
@@ -158,9 +156,6 @@ class LeggedEnv:
         if self._sea is None and ctrl.control_type not in ("P", "V", "T"):
             raise ValueError(f"control_type {ctrl.control_type!r}: P, V "
                              "or T")
-        if cfg.env.num_privileged_obs is not None:
-            raise _not_ported("privileged observations")
-
         self.num_envs = cfg.env.num_envs
         self.dt = cfg.control.decimation * cfg.sim.dt     # policy dt
         self.max_episode_length_s = cfg.env.episode_length_s
@@ -289,6 +284,22 @@ class LeggedEnv:
             raise ValueError(f"obs dim {self.obs_dim} != cfg "
                              f"{cfg.env.num_observations}")
         self.noise_vec = self._build_noise_vec()
+
+        # privileged observations for an asymmetric critic (the VecEnv
+        # privileged_obs contract, base_task.py:70-78,101-110; the
+        # reference allocates the buffer but ships no producer; the JAX
+        # package's layout: noiseless obs + ground friction + base-mass
+        # scale + feet contact forces)
+        self.num_privileged_obs = None
+        if cfg.env.num_privileged_obs is not None:
+            expect = self.obs_dim + 2 + 3 * len(self.feet_idx)
+            if cfg.env.num_privileged_obs != expect:
+                raise ValueError(
+                    f"num_privileged_obs={cfg.env.num_privileged_obs} but "
+                    f"the privileged layout for this robot has {expect} "
+                    f"dims (obs {self.obs_dim} + friction 1 + base-mass 1 "
+                    f"+ 3x{len(self.feet_idx)} feet forces)")
+            self.num_privileged_obs = expect
 
         # --- rewards (nonzero scales x dt, legged_robot.py:574-598) ---
         self.reward_scales = {}
@@ -849,10 +860,23 @@ class LeggedEnv:
                         for name, s in episode_sums.items()}
 
         # ---- observations (:214-231) ----
-        obs = self._compute_obs(physics, base_lin_vel, base_ang_vel,
-                                projected_gravity, commands, a, measured)
+        obs, obs_clean = self._compute_obs(
+            physics, base_lin_vel, base_ang_vel, projected_gravity, commands,
+            a, measured)
         clip_o = cfg.normalization.clip_observations
         obs = torch.clamp(obs, -clip_o, clip_o)
+        priv_obs = None
+        if self.num_privileged_obs is not None:
+            # what the real robot cannot sense: noiseless obs, the true
+            # ground friction, the base-mass scale, the feet contact forces
+            feet_f = contact_f[:, self._feet].reshape(3 * len(self.feet_idx),
+                                                      n)
+            priv_obs = torch.cat([
+                torch.clamp(obs_clean, -clip_o, clip_o),
+                friction[None, :],
+                mass_scales[:1],
+                feet_f * 0.01,
+            ], dim=0).T                                     # (N, P)
 
         if self._warm_start:
             # fresh spawns start with no remembered stick anchors: back to
@@ -878,8 +902,20 @@ class LeggedEnv:
             torques=torques,
             feet_contact_z=(contact_f[2, self._feet] if len(self.feet_idx)
                             else torch.zeros((0, n), dtype=self.dtype,
-                                             device=dev)))
+                                             device=dev)),
+            privileged_obs=priv_obs)
         return new_state, tr
+
+    # ------------------------------------------------------------- teleop
+
+    def set_commands(self, state: EnvState, vx, vy, wz):
+        """Override every env's velocity command (the reference's teleop
+        hook _change_cmds, legged_robot.py:970-975; consumed by
+        play_joy.py:119). Returns a new state; the heading slot is kept."""
+        c = state.commands
+        vel = torch.tensor([vx, vy, wz], dtype=self.dtype, device=c.device)
+        c = torch.cat([vel[:, None].expand(3, c.shape[-1]), c[3:]], dim=0)
+        return dataclasses.replace(state, commands=c)
 
     # ------------------------------------------------------------ physics
 
@@ -993,6 +1029,7 @@ class LeggedEnv:
 
     def _compute_obs(self, physics, base_lin_vel, base_ang_vel,
                      projected_gravity, commands, actions, measured):
+        """(obs, noiseless obs), each (obs_dim, N), before clipping."""
         s = self.obs_scales
         parts = [
             base_lin_vel * s["lin_vel"],
@@ -1007,13 +1044,14 @@ class LeggedEnv:
             h = torch.clamp(physics.pos[2][None, :] - 0.5 - measured,
                             -1.0, 1.0) * s["height_measurements"]
             parts.append(h)
-        obs = torch.cat(parts, dim=0)                    # (obs_dim, N)
+        clean = torch.cat(parts, dim=0)                  # (obs_dim, N)
+        obs = clean
         if self.cfg.noise.add_noise:
             noise = (2.0 * torch.rand(obs.shape, generator=self.generator,
                                       dtype=self.dtype, device=self.device)
                      - 1.0) * self._noise_vec
             obs = obs + noise
-        return obs
+        return obs, clean
 
     # ------------------------------------------------------- reward terms
     # formulas: legged_robot.py:857-966 (fork variant incl. energy,

@@ -12,29 +12,38 @@ import torch
 
 from legged_gym_tpu_torch.envs.legged_env import EnvState
 from legged_gym_tpu_torch.physics.state import PhysicsState
-from legged_gym_tpu_torch.rl.networks import ActorCritic
+from legged_gym_tpu_torch.rl.networks import (ActorCritic,
+                                              ActorCriticRecurrent)
 from legged_gym_tpu_torch.rl.ppo import AdamState, TrainState
 
 
 def actor_critic_from_jax(params_np, activation="elu", device="cpu"):
     """``{"actor": [{"w", "b"}, ...], "critic": [...], "std"}`` (JAX
-    layout: w is (in, out)) -> ActorCritic with the same weights."""
+    layout: w is (in, out)) -> ActorCritic with the same weights; with
+    ``"mem_a"`` / ``"mem_c"`` (LSTM layers ``{"w" (in+h, 4h), "b"}``) an
+    ActorCriticRecurrent, the critic's LSTM as wide as its input (the
+    privileged observations of an asymmetric critic)."""
     actor, critic = params_np["actor"], params_np["critic"]
-    obs_dim = np.shape(actor[0]["w"])[0]
     num_actions = np.shape(actor[-1]["w"])[1]
-    model = ActorCritic(
-        obs_dim, num_actions,
+    widths = dict(
         actor_hidden_dims=[np.shape(l["w"])[1] for l in actor[:-1]],
         critic_hidden_dims=[np.shape(l["w"])[1] for l in critic[:-1]],
-        activation=activation,
-        critic_obs_dim=np.shape(critic[0]["w"])[0])
+        activation=activation)
+    if "mem_a" in params_np:
+        mem_a, mem_c = params_np["mem_a"], params_np["mem_c"]
+        hidden = np.shape(mem_a[0]["b"])[0] // 4
+        model = ActorCriticRecurrent(
+            np.shape(mem_a[0]["w"])[0] - hidden, num_actions,
+            critic_obs_dim=np.shape(mem_c[0]["w"])[0] - hidden,
+            rnn_hidden_size=hidden, rnn_num_layers=len(mem_a), **widths)
+    else:
+        model = ActorCritic(np.shape(actor[0]["w"])[0], num_actions,
+                            critic_obs_dim=np.shape(critic[0]["w"])[0],
+                            **widths)
     with torch.no_grad():
-        for seq, layers in ((model.actor, actor), (model.critic, critic)):
-            linears = [m for m in seq if isinstance(m, torch.nn.Linear)]
-            for lin, p in zip(linears, layers):
-                lin.weight.copy_(torch.as_tensor(np.array(p["w"]).T))
-                lin.bias.copy_(torch.as_tensor(np.array(p["b"])))
-        model.std.copy_(torch.as_tensor(np.array(params_np["std"])))
+        for p, w in zip(model.parameters(),
+                        param_list_from_jax(model, params_np)):
+            p.copy_(w)
     return model.to(device)
 
 
@@ -45,13 +54,20 @@ def _linears(seq):
 def param_list_from_jax(model, tree_np):
     """A JAX-layout tree shaped like the params (weights, Adam moments,
     gradients) -> tensors in ``model.parameters()`` order, transposed to
-    the ``nn.Linear`` layout, on the model's device."""
+    the ``nn.Linear`` layout (the LSTM layers keep the JAX layout), on the
+    model's device."""
     by_id = {}
     for seq, layers in ((model.actor, tree_np["actor"]),
                         (model.critic, tree_np["critic"])):
         for lin, p in zip(_linears(seq), layers):
             by_id[id(lin.weight)] = np.array(p["w"]).T
             by_id[id(lin.bias)] = np.array(p["b"])
+    for name, key in (("memory_a", "mem_a"), ("memory_c", "mem_c")):
+        if hasattr(model, name):
+            lstm = getattr(model, name)
+            for w, b, p in zip(lstm.w, lstm.b, tree_np[key]):
+                by_id[id(w)] = np.array(p["w"])
+                by_id[id(b)] = np.array(p["b"])
     by_id[id(model.std)] = np.array(tree_np["std"])
     return [torch.as_tensor(by_id[id(p)], dtype=p.dtype, device=p.device)
             .contiguous() for p in model.parameters()]

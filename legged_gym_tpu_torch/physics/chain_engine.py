@@ -3,10 +3,12 @@ substeps) as one call.
 
 On a CUDA device the step runs as one launch of the hand-written kernel
 (chain_kernel.run_decimation picks the wrapper of the configuration's
-variant, K1-K4); on the CPU it runs the plain PyTorch version
-(chain_step.run_decimation_chain). The torque-drive step for per-sim-dt
-actuator nets (step_decimation_torque_fn) is ``decimation`` launches of
-one sim dt each with the net evaluated in between. Handles the joint-order
+variant, K1-K4); on the CPU, or when the caller asks for it with
+``plain=True`` (gradient MPC: the kernel has no backward), it runs the
+plain PyTorch version (chain_step.run_decimation_chain). The
+torque-drive step for per-sim-dt actuator nets (step_decimation_torque_fn)
+is ``decimation`` launches of one sim dt each with the net evaluated in
+between. Handles the joint-order
 <-> chain-layout conversions (index gathers) and the per-env contact
 window.
 """
@@ -228,21 +230,27 @@ class ChainEngine:
 
     def step_decimation_pos(self, state: PhysicsState, link_params,
                             friction, targets, contact_patch=None,
-                            anchors=None):
+                            anchors=None, plain=False):
         """Full policy-step physics, position drive. Returns
         (state', torques (nq, N), body_forces (3, nb, N)); body_forces is
         the net-contact-force sensor of the last substep. With
         ``cc.warm_start`` and ``anchors`` (init_anchors layout) a 4th
         element: the updated anchors. CUDA tensors launch the kernel of
         the configuration's variant (K1, K4, or K2 on trimesh / with
-        per-sim-dt planes), or raise; CPU tensors run the plain version."""
+        per-sim-dt planes), or raise; CPU tensors run the plain version.
+        ``plain``: run the plain version (chain_step.run_decimation_chain)
+        on any device and count no launch — the differentiable path, the
+        counterpart of the JAX package's ``use_pallas=False`` that
+        gradient MPC takes (the kernel has no backward)."""
         c = self._consts(state.pos.device)
         args = self.level_args(state, link_params, friction, targets,
                                contact_patch)
         track_anchors = self.cc.warm_start and anchors is not None
-        out = chain_kernel.run_decimation(
-            self.cc, *args, anchors=anchors if track_anchors else None,
-            cv=c["cv"], consts=c["table"])
+        run = (chain_step.run_decimation_chain if plain
+               else chain_kernel.run_decimation)
+        kw = {} if plain else {"consts": c["table"]}
+        out = run(self.cc, *args, anchors=anchors if track_anchors else None,
+                  cv=c["cv"], **kw)
         pos, quat, vel, q_l, qd_l, tau_l, body_f = out[:7]
         new_state = PhysicsState(pos=pos, quat=quat, vel=vel,
                                  q=self.from_level(q_l),

@@ -1,6 +1,6 @@
 """PPO: rollout (a loop over env.step) + GAE + clipped surrogate update with
-adaptive-KL learning rate, for a feed-forward policy with a symmetric
-critic.
+adaptive-KL learning rate, for a feed-forward or recurrent (LSTM) policy
+with a symmetric or asymmetric critic.
 
 The port of the JAX package's ``rl/ppo.py`` (itself a functional re-design
 of rsl_rl as the reference trains with it; hyperparameters
@@ -17,14 +17,20 @@ legged_robot_config.py:212-247). Semantics mirrored:
   lr /= 1.5 above 2x desired_kl, lr *= 1.5 below 0.5x (and kl > 0),
   clamped to [1e-5, 1e-2];
 - one index permutation, truncated to mb_size * n_mb, shared by all epochs
-  (rsl_rl's mini_batch_generator): 5 epochs x 4 minibatches.
+  (rsl_rl's mini_batch_generator): 5 epochs x 4 minibatches;
+- asymmetric critic: when the env has privileged observations, the carried
+  obs is the pair (obs, privileged_obs) and the critic reads the second;
+- recurrent policy: the carried obs is (obs[, privileged_obs], memory),
+  memory the actor / critic LSTM carries {"a", "c"} (N, L, 2, h), zeroed
+  on done. Minibatches split the ENV axis, and the loss re-runs the LSTM
+  over the whole T-step window from the window-start carry, zeroing at
+  dones: BPTT through the window, as the JAX package does it.
 
 PyTorch idiom: the policy is an ``nn.Module`` updated in place by
 autograd; the rollout runs under ``torch.no_grad()`` (not inference mode:
 its tensors feed the update); the learning rate and every metric stay on
 the device, so an iteration makes no device-to-host read — the runner
-fetches the metrics once per iteration. The recurrent policy and the
-asymmetric critic are not ported (NotImplementedError).
+fetches the metrics once per iteration.
 """
 from __future__ import annotations
 
@@ -112,29 +118,19 @@ def make_optimizer(alg):
     return Optimizer(alg.max_grad_norm)
 
 
-def _check_supported(policy_cfg, critic_obs_dim):
-    if nets.is_recurrent(policy_cfg):
-        raise NotImplementedError(
-            "the recurrent policy (ActorCriticRecurrent) is not ported yet "
-            "(see ROADMAP.md Queue 1)")
-    if critic_obs_dim is not None:
-        raise NotImplementedError(
-            "the asymmetric critic (privileged observations) is not ported "
-            "yet (see ROADMAP.md Queue 1)")
-
-
 def init_train_state(seed, obs_dim, num_actions, policy_cfg, alg_cfg,
                      critic_obs_dim=None, device="cuda"):
     """A fresh TrainState on ``device``: weights drawn from a generator
     seeded with ``seed`` (on the CPU, so they do not depend on the device),
     zero Adam moments, lr = alg_cfg.learning_rate, and two device
     generators seeded from ``seed`` for the action noise and the minibatch
-    permutation."""
-    _check_supported(policy_cfg, critic_obs_dim)
+    permutation. ``critic_obs_dim``: the critic's input width when it
+    reads privileged observations."""
     device = torch.device(device)
     model = nets.ActorCritic.from_cfg(
         obs_dim, num_actions, policy_cfg,
-        generator=torch.Generator().manual_seed(seed)).to(device)
+        generator=torch.Generator().manual_seed(seed),
+        critic_obs_dim=critic_obs_dim).to(device)
     noise = torch.Generator(device=device).manual_seed(seed + 1)
     perm = torch.Generator(device=device).manual_seed(seed + 2)
     return TrainState(
@@ -165,10 +161,26 @@ def compute_gae(reward, value, not_done, last_value, gamma, lam):
     return adv
 
 
-def ppo_loss(model, mb, alg_cfg):
-    """(loss, (surrogate, value_loss, kl)) of one minibatch."""
-    mean = nets.actor_mean(model, mb["obs"])
-    value = nets.critic_value(model, mb["obs"])
+def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False):
+    """(loss, (surrogate, value_loss, kl)) of one minibatch. Recurrent: the
+    minibatch is time-major (T, N_mb, ...) with the window-start carries
+    ``mem_a0`` / ``mem_c0``, and the LSTMs run over the window from them,
+    zeroed where an episode ended."""
+    cobs = mb["cobs"] if asym else mb["obs"]
+    if recurrent:
+        ma, mc = mb["mem_a0"], mb["mem_c0"]
+        means, values = [], []
+        for t in range(mb["obs"].shape[0]):
+            mean_t, ma = nets.actor_mean_rnn(model, mb["obs"][t], ma)
+            value_t, mc = nets.critic_value_rnn(model, cobs[t], mc)
+            keep = (1.0 - mb["done"][t])[:, None, None, None]
+            ma, mc = ma * keep, mc * keep
+            means.append(mean_t)
+            values.append(value_t)
+        mean, value = torch.stack(means), torch.stack(values)
+    else:
+        mean = nets.actor_mean(model, mb["obs"])
+        value = nets.critic_value(model, cobs)
     std = model.std.expand_as(mean)
     logp = nets.gaussian_log_prob(mb["action"], mean, std)
     entropy = nets.gaussian_entropy(std)
@@ -198,22 +210,28 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     """Returns ``learn_iteration(train_state, env_state, obs, noise=None,
     perm=None)`` -> (train_state, env_state, obs, metrics): ``num_steps``
     env steps, GAE and the PPO update. ``metrics`` holds 0-d tensors on
-    the device (``episode`` a dict of them).
+    the device (``episode`` a dict of them). ``obs`` is the carried pack:
+    the (N, obs_dim) observations, or (obs, privileged_obs) when the env
+    has privileged observations, and with a recurrent policy that wrapped
+    as (obs_pack, memory) (``networks.init_memory``).
 
     ``noise`` (num_steps, N, num_actions) standard-normal draws and
-    ``perm`` (a permutation of num_steps * N) replace the generators'
-    draws; the parity tests replay the JAX package's with them.
+    ``perm`` (a permutation of num_steps * N, or of N for a recurrent
+    policy) replace the generators' draws; the parity tests replay the JAX
+    package's with them.
 
     Set ``learn_iteration.profile = True`` to synchronize at the phase
     boundaries and append {"rollout_s", "update_s"} (host clock) of each
     iteration to ``learn_iteration.times``.
     """
-    _check_supported(policy_cfg, getattr(env, "num_privileged_obs", None))
     opt = make_optimizer(alg_cfg)
     n_mb = alg_cfg.num_mini_batches
     n_ep = alg_cfg.num_learning_epochs
     gamma, lam = alg_cfg.gamma, alg_cfg.lam
     adaptive = alg_cfg.schedule == "adaptive" and alg_cfg.desired_kl > 0
+    recurrent = nets.is_recurrent(policy_cfg)
+    # asymmetric critic (rsl_rl's critic_obs routing, on_policy_runner.py)
+    asym = getattr(env, "num_privileged_obs", None) is not None
 
     def clock(device):
         if learn_iteration.profile and device.type == "cuda":
@@ -223,37 +241,63 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     def learn_iteration(ts: TrainState, env_state, obs, noise=None,
                         perm=None):
         model = ts.model
-        device = obs.device
+        memory = None
+        if recurrent:
+            obs, memory = obs
+        # the window-start carries: the update re-runs each minibatch's
+        # window from them
+        mem_start = memory
+        device = (obs[0] if asym else obs).device
         t0 = clock(device)
 
         # ---- rollout ----
         steps = []
         with torch.no_grad():
             for t in range(num_steps):
-                action, logp, mean, std = nets.sample_action(
-                    model, obs, ts.noise_generator,
-                    eps=None if noise is None else noise[t])
-                value = nets.critic_value(model, obs)
+                aobs, cobs = obs if asym else (obs, obs)
+                eps = None if noise is None else noise[t]
+                if recurrent:
+                    mean, mem_a = nets.actor_mean_rnn(model, aobs,
+                                                      memory["a"])
+                    action, logp = nets.sample_around(
+                        model, mean, ts.noise_generator, eps)
+                    std = model.std.expand_as(mean)
+                    value, mem_c = nets.critic_value_rnn(model, cobs,
+                                                         memory["c"])
+                else:
+                    action, logp, mean, std = nets.sample_action(
+                        model, aobs, ts.noise_generator, eps)
+                    value = nets.critic_value(model, cobs)
                 env_state, tr = env.step(env_state, action)
                 steps.append(dict(
-                    obs=obs, action=action, logp=logp, mean=mean, std=std,
-                    value=value, reward=tr.reward, done=tr.done,
-                    time_out=tr.time_out, ep_sums=tr.episode_sums,
-                    ep_count=tr.episode_count,
+                    obs=aobs, cobs=cobs, action=action, logp=logp,
+                    mean=mean, std=std, value=value, reward=tr.reward,
+                    done=tr.done, time_out=tr.time_out,
+                    ep_sums=tr.episode_sums, ep_count=tr.episode_count,
                     ep_len_sum=tr.episode_length_sum,
                     terrain_level=tr.terrain_level_mean,
                     max_command_x=tr.max_command_x))
-                obs = tr.obs
+                if recurrent:
+                    # rsl_rl resets the hidden states of finished envs
+                    keep = (~tr.done).to(mem_a.dtype)[:, None, None, None]
+                    memory = {"a": mem_a * keep, "c": mem_c * keep}
+                obs = (tr.obs, tr.privileged_obs) if asym else tr.obs
 
             def stacked(name):
                 return torch.stack([s[name] for s in steps])
 
-            batch = {name: stacked(name) for name in (
-                "obs", "action", "logp", "mean", "std", "value", "reward",
-                "done", "time_out", "ep_count", "ep_len_sum")}
+            names = ["obs", "action", "logp", "mean", "std", "value",
+                     "reward", "done", "time_out", "ep_count", "ep_len_sum"]
+            batch = {name: stacked(name)
+                     for name in names + ["cobs"] * asym}
 
             # ---- timeout bootstrap + GAE ----
-            last_value = nets.critic_value(model, obs)
+            last_cobs = obs[1] if asym else obs
+            if recurrent:
+                last_value, _ = nets.critic_value_rnn(model, last_cobs,
+                                                      memory["c"])
+            else:
+                last_value = nets.critic_value(model, last_cobs)
             dtype = batch["reward"].dtype
             reward = bootstrap_timeouts(batch["reward"], batch["value"],
                                         batch["time_out"], gamma)
@@ -264,22 +308,26 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
             adv_norm = ((advantages - advantages.mean())
                         / (advantages.std(unbiased=False) + 1e-8))
 
-            # ---- minibatching: flatten (T, N, ...) and permute once ----
+            # ---- minibatching ----
+            # feed-forward: flatten (T, N, ...) and permute once; recurrent:
+            # split the env axis and keep the windows time-major
             t_len, n_env = reward.shape
-            tn = t_len * n_env
-            flat = {
-                "obs": batch["obs"].reshape(tn, -1),
-                "action": batch["action"].reshape(tn, -1),
-                "logp": batch["logp"].reshape(tn),
-                "mean": batch["mean"].reshape(tn, -1),
-                "std": batch["std"].reshape(tn, -1),
-                "value": batch["value"].reshape(tn),
-                "returns": returns.reshape(tn),
-                "adv": adv_norm.reshape(tn),
-            }
-            mb_size = tn // n_mb
+            flat = {"obs": batch["obs"], "action": batch["action"],
+                    "logp": batch["logp"], "mean": batch["mean"],
+                    "std": batch["std"], "value": batch["value"],
+                    "returns": returns, "adv": adv_norm}
+            if asym:
+                flat["cobs"] = batch["cobs"]
+            if recurrent:
+                flat["done"] = batch["done"].to(dtype)
+                n_rows = n_env
+            else:
+                n_rows = t_len * n_env
+                flat = {k: v.reshape((n_rows,) + v.shape[2:])
+                        for k, v in flat.items()}
+            mb_size = n_rows // n_mb
             if perm is None:
-                perm = torch.randperm(tn, generator=ts.perm_generator,
+                perm = torch.randperm(n_rows, generator=ts.perm_generator,
                                       device=device)
             mb_idx = perm[: mb_size * n_mb].reshape(n_mb, mb_size)
         t1 = clock(device)
@@ -290,8 +338,14 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         stats = []
         for _ in range(n_ep):
             for idx in mb_idx:
-                mb = {k: v[idx] for k, v in flat.items()}
-                loss, (s_loss, v_loss, kl) = ppo_loss(model, mb, alg_cfg)
+                if recurrent:
+                    mb = {k: v[:, idx] for k, v in flat.items()}
+                    mb["mem_a0"] = mem_start["a"][idx]
+                    mb["mem_c0"] = mem_start["c"][idx]
+                else:
+                    mb = {k: v[idx] for k, v in flat.items()}
+                loss, (s_loss, v_loss, kl) = ppo_loss(model, mb, alg_cfg,
+                                                      recurrent, asym)
                 grads = list(torch.autograd.grad(loss, params))
                 with torch.no_grad():
                     if adaptive:
@@ -336,6 +390,8 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
             t2 = clock(device)
             learn_iteration.times.append({"rollout_s": t1 - t0,
                                           "update_s": t2 - t1})
+        if recurrent:
+            obs = (obs, memory)
         return ts, env_state, obs, metrics
 
     learn_iteration.profile = False

@@ -4,7 +4,8 @@ interface per task_registry.py:160-167 / train.py:43).
 The iteration itself is rl/ppo.py's ``learn_iteration``; this class
 orchestrates: iteration loop, steps/s metering, checkpoint save / load
 (``torch.save``), scalar logging (plain JSONL in the JAX package's layout,
-plus tensorboardX if it is installed), and the inference policy.
+plus tensorboardX if it is installed), the inference policy and the policy
+export.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from legged_gym_tpu_torch.rl import networks as nets
@@ -101,6 +103,17 @@ class PPORunner:
         if self.env_state is None:
             with torch.no_grad():
                 self.env_state, self.obs = self.env.reset()
+                if getattr(self.env, "num_privileged_obs", None) is not None:
+                    # asymmetric critic: carry the (obs, privileged_obs)
+                    # pack, from one more zero-action step
+                    self.env_state, tr = self.env.step(
+                        self.env_state, torch.zeros(
+                            (self.env.num_envs, self.env.num_actions),
+                            device=self.device))
+                    self.obs = (tr.obs, tr.privileged_obs)
+            if self.recurrent:
+                self.obs = (self.obs, nets.init_memory(
+                    self.env.num_envs, self.cfg.policy, device=self.device))
             if init_at_random_ep_len:
                 # reference train.py:43 randomizes initial episode
                 # progress to decorrelate resets
@@ -226,10 +239,72 @@ class PPORunner:
 
     def get_inference_policy(self):
         """Deterministic actor: obs (N, D) -> actions (N, na) (rsl_rl
-        get_inference_policy equivalent, play.py:66). MLP policies only."""
-        model = self.train_state.model
+        get_inference_policy equivalent, play.py:66).
 
-        def policy(obs):
-            with torch.no_grad():
-                return nets.actor_mean(model, obs)
-        return policy
+        A recurrent policy is a STATEFUL callable holding the LSTM carry
+        across calls, zeroed on first use — the reference's
+        PolicyExporterLSTM (helpers.py:193-219, persistent hidden / cell
+        state buffers); call ``policy.reset_memory()`` between episodes."""
+        model = self.train_state.model
+        if not self.recurrent:
+            def policy(obs):
+                with torch.no_grad():
+                    return nets.actor_mean(model, obs)
+            return policy
+        return _StatefulPolicy(model, self.cfg.policy)
+
+    def export_policy(self, path):
+        """Serialize the actor for deployment (the TorchScript export of
+        helpers.py:180-219, LSTM exporter included) as the JAX package's
+        ``.npz``: ``w{i}`` (in, out) / ``b{i}`` per actor layer and
+        ``activation``; a recurrent actor adds ``lstm_w{i}`` (in + h, 4h) /
+        ``lstm_b{i}`` (torch gate order i, f, g, o), ``rnn_hidden_size``
+        and ``rnn_num_layers``."""
+        model = self.train_state.model
+        linears = [m for m in model.actor if isinstance(m, torch.nn.Linear)]
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        flat = {}
+        for i, lin in enumerate(linears):
+            flat[f"w{i}"] = host(lin.weight).T
+            flat[f"b{i}"] = host(lin.bias)
+        flat["activation"] = np.asarray(self.cfg.policy.activation)
+        if self.recurrent:
+            for i, (w, b) in enumerate(zip(model.memory_a.w,
+                                           model.memory_a.b)):
+                flat[f"lstm_w{i}"] = host(w)
+                flat[f"lstm_b{i}"] = host(b)
+            flat["rnn_hidden_size"] = np.asarray(
+                self.cfg.policy.rnn_hidden_size)
+            flat["rnn_num_layers"] = np.asarray(
+                self.cfg.policy.rnn_num_layers)
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        np.savez(path, **flat)
+        return path
+
+
+class _StatefulPolicy:
+    """The recurrent inference policy: the actor LSTM's carry lives here
+    between calls."""
+
+    def __init__(self, model, policy_cfg):
+        self.model = model
+        self.policy_cfg = policy_cfg
+        self.carry = None
+
+    def reset_memory(self):
+        self.carry = None
+
+    def __call__(self, obs):
+        with torch.no_grad():
+            if self.carry is None:
+                self.carry = nets.init_memory(
+                    obs.shape[0], self.policy_cfg, obs.dtype,
+                    obs.device)["a"]
+            action, self.carry = nets.actor_mean_rnn(self.model, obs,
+                                                     self.carry)
+        return action

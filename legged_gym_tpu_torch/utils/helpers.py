@@ -75,7 +75,8 @@ def get_args(argv=None):
                    help="checkpoint iteration; -1 = last")
     p.add_argument("--headless", action="store_true")
     p.add_argument("--record", action="store_true",
-                   help="play: dump a rollout and render it (not ported)")
+                   help="play: dump a rollout and render it to GIF + PNG "
+                        "strip (offline viewer)")
     p.add_argument("--record_steps", type=int, default=None)
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)

@@ -347,24 +347,30 @@ def test_ppo_learns_point_env():
         assert torch.equal(a, b)
 
 
-def test_recurrent_and_asymmetric_configs_raise():
-    pol = PolicyCfg(rnn_type="lstm")
+def test_recurrent_and_asymmetric_configs_build():
+    """The recurrent policy and the asymmetric critic build where the
+    port raised before they were ported; rnn_type other than lstm still
+    raises, as in the JAX package."""
+    pol = PolicyCfg(actor_hidden_dims=[8], critic_hidden_dims=[8],
+                    rnn_type="lstm", rnn_hidden_size=4)
     alg = AlgorithmCfg()
-    with pytest.raises(NotImplementedError):
-        ppo.init_train_state(0, 2, 1, pol, alg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ppo.make_learn_fn(TorchPointEnv(), pol, alg, 4)
-    with pytest.raises(NotImplementedError):
-        ppo.init_train_state(0, 2, 1, PolicyCfg(), alg, critic_obs_dim=5,
-                             device="cpu")
+    ts = ppo.init_train_state(0, 2, 1, pol, alg, device="cpu")
+    assert isinstance(ts.model, nets.ActorCriticRecurrent)
+    ppo.make_learn_fn(TorchPointEnv(), pol, alg, 4)
+    ts = ppo.init_train_state(0, 2, 1, PolicyCfg(), alg, critic_obs_dim=5,
+                              device="cpu")
+    assert ts.model.critic[0].in_features == 5
+    assert ts.model.actor[0].in_features == 2
 
     class AsymEnv(TorchPointEnv):
         num_privileged_obs = 5
 
+    ppo.make_learn_fn(AsymEnv(), PolicyCfg(), alg, 4)
     with pytest.raises(NotImplementedError):
-        ppo.make_learn_fn(AsymEnv(), PolicyCfg(), alg, 4)
+        nets.ActorCritic.from_cfg(2, 1, PolicyCfg(rnn_type="gru"))
     with pytest.raises(NotImplementedError):
-        nets.ActorCritic.from_cfg(2, 1, pol)
+        ppo.init_train_state(0, 2, 1, PolicyCfg(rnn_type="gru"), alg,
+                             device="cpu")
 
 
 # ------------------------------------------------- runner, registry, CLI
