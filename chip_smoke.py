@@ -110,7 +110,43 @@ Phases (any failure exits non-zero and prints no result):
      steps keep the commands; a K1 step at play's 25 envs and at
      teleop's 1 env held against the plain version under phase 2's
      settled rule;
-  9. print the kernel table line (launch counts of phases 3-8), the card's
+  9. the env axis split over ranks (legged_gym_tpu_torch/parallel), each
+     sub-phase's wall time printed:
+     (a) go1 rough at 1800 global envs on 2 ranks of a gloo group on the
+         one card (900 each), through registry.make_env(mesh=) and
+         PPORunner on that env, spawned by parallel.run_ranks: 1 + 1
+         iterations (the second timed with the all-reduces' host time),
+         1 + 48 K1 launches per rank, the ranks' parameters equal; first
+         the actor's rows at 1800 against the same rows in two parts of
+         900 are printed: they need not agree to the bit, and Adam's first
+         step moves a parameter whose gradient is zero up to rounding by a
+         rounding-decided amount, so the whole run's drift from the
+         unsharded run of the same seed is printed and the two halves are
+         held apart: each rank's env replayed with the unsharded rollout's
+         actions against its envs of it (STATE_ATOL per env, the flip
+         share of phase 2), and each rank's update of the second
+         iteration from the unsharded checkpoint on the unsharded batch
+         at tests/test_sharding.py's tolerances (loss 1e-4 relative,
+         parameters 1e-4); K1 at 900 envs held against its plain version
+         (phase 2's settled rule) and timed with its bound;
+     (b) one rank of an NCCL group: its initial observations and
+         parameters equal the unsharded run's to the bit (the actor's
+         rows on them, in the rank and again in the parent on a copy,
+         printed); its own first iteration against the unsharded one:
+         the rollout per env under phase 2's flip rule, the update at
+         (a)'s tolerances; the replay and the second update held as in
+         (a);
+     (c) MPPI at K = 8192 (4096 per rank) and one CEM solve over the two
+         ranks from phase 6's planner stance against the unsharded plans
+         (rtol 2e-4, atol 2e-5), 16 K2 launches per rank per MPPI solve,
+         the MPPI solve timed on 2 ranks and unsharded; K2 at 4096
+         candidates of go1's layout from phase 6's riser stance held
+         against its plain version (walled floor) and timed;
+     (d) scripts.bench_scaling at 1 and 2 ranks (go1, 4096 envs);
+     (e) the general tree: a model with a prismatic joint and the hopper
+         with the explicit spring law, 3 general-engine sim dts on the card
+         against the CPU;
+ 10. print the kernel table line (launch counts of phases 3-9), the card's
      wall time for the whole run, the card's name and power limit, and the
      result line.
 
@@ -858,17 +894,16 @@ def riser_stance(smi):
                  state.friction[one].contiguous())
 
 
-def mpc_step_args(env, phys, lp, fr, gen):
-    """The kernel arguments of one MPC policy step at K = MPC_K: the N=1
+def mpc_step_args(env, phys, lp, fr, gen, k=MPC_K):
+    """The kernel arguments of one MPC policy step at K = k: the N=1
     stance tiled over K as the planner tiles it (SamplingMPC._tiled, the
     shared contact window tiled), seeded random actions of the planner's
     0.3 std."""
     from legged_gym_tpu_torch.mpc import MPCConfig, SamplingMPC
 
-    mpc = SamplingMPC(env, MPCConfig(horizon=MPC_HORIZON,
-                                     num_samples=MPC_K))
-    phys_k, lp_k, fr_k, cpatch, _ = mpc._tiled(phys, lp, fr, None, MPC_K)
-    a = 0.3 * torch.randn((env.num_actions, MPC_K), generator=gen,
+    mpc = SamplingMPC(env, MPCConfig(horizon=MPC_HORIZON, num_samples=k))
+    phys_k, lp_k, fr_k, cpatch, _ = mpc._tiled(phys, lp, fr, None, k)
+    a = 0.3 * torch.randn((env.num_actions, k), generator=gen,
                           device=DEVICE)
     targets = torch.clamp(a * env.cfg.control.action_scale + env._dflt,
                           env._soft_lo, env._soft_hi)
@@ -882,7 +917,8 @@ def check_mpc_kernel(env, state, smi):
     rule (hold_kernel): from the planner's own settled stance, and from a
     stance on a stair riser (riser_stance), which must have its K envs in
     contact and at least 10 where the wall rule changes a contact; the
-    second timed with its bound. Returns the entry's MPC-shape numbers."""
+    second timed with its bound. Returns (the entry's MPC-shape numbers,
+    the riser stance: its env and N=1 (physics, link params, friction))."""
     from legged_gym_tpu_torch.scripts import kernel_numerics as kn
 
     cc = env.chain_engine.cc
@@ -909,7 +945,7 @@ def check_mpc_kernel(env, state, smi):
             "mpc_max_abs_err": max(errs[k] for k in kn.NAMES[:6]),
             "mpc_ms": entry["ms"], "mpc_plain_ms": entry["plain_ms"],
             "mpc_bound_ms": entry["bound_ms"],
-            "mpc_bound_by": entry["bound_by"]}
+            "mpc_bound_by": entry["bound_by"]}, (r_env, stance)
 
 
 def mpc_go1(env, state, smi):
@@ -1204,16 +1240,20 @@ def hold_at(tag, env, state, smi):
 
 def mpc_phase(smi):
     """Phase 6: returns (the K2 entry's MPC-shape numbers, K2 launches,
-    K4 launches)."""
+    K4 launches, the stances phase 9 plans from: {"planner": the
+    planner's settled N=1 (physics, link params, friction), "riser": the
+    riser stance's env and N=1 stance})."""
     t6 = time.perf_counter()
     env, state = mpc_env("go1", "trimesh")
-    mpc_entry = check_mpc_kernel(env, state, smi)
+    mpc_entry, riser = check_mpc_kernel(env, state, smi)
     k2_mpc = mpc_go1(env, state, smi)
+    stances = {"planner": (state.physics, state.link_params,
+                           state.friction), "riser": riser}
     del env
     k4_mpc = mpc_aliengo(smi)
     mpc_gradient(smi)
     print(f"phase 6: {time.perf_counter() - t6:.1f} s [{smi}]")
-    return mpc_entry, k2_mpc, k4_mpc
+    return mpc_entry, k2_mpc, k4_mpc, stances
 
 
 def lstm_phase(smi):
@@ -1304,6 +1344,661 @@ def play_phase(go1_runner, lstm_runner, smi):
             states[held], smi)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s [{smi}]")
     return k1_play + 1 + TELEOP_STEPS
+
+
+# ---------------------------------------------------------------- phase 9
+
+SHARD_RANKS = 2         # ranks on the one card (gloo)
+SHARD_SEED = 5          # the sharded runs' and their references' seed
+SHARD_TIMEOUT_S = 300.0
+SHARD_PARAM_ATOL = 1e-4         # tests/test_sharding.py:83-91
+SHARD_LOSS_RTOL = 1e-4
+PLAN_RTOL, PLAN_ATOL = 2e-4, 2e-5   # tests/test_mpc.py:172-215
+SHARD_MPC_TIMED = 3     # timed MPPI solves after the compared one
+SCALING_ENVS = 4096     # bench_scaling's go1 at its registered size
+TREE_STEPS = 3          # general-engine sim dts, card vs CPU
+TREE_ATOL = 5e-3        # tests/test_chain_engine.py:140-144
+# a slider (prismatic) with a knee after it and a tail on the base; the
+# 2-dof hopper of tests/test_torch_mpc.py (tests/test_torch_general_tree.py
+# holds both against the JAX package)
+SLIDER_URDF = """<robot name="slider">
+<link name="base"><inertial><mass value="2.0"/><origin xyz="0 0 0"/>
+<inertia ixx="0.02" iyy="0.03" izz="0.02" ixy="0" ixz="0" iyz="0"/></inertial>
+<collision><origin xyz="0 0 0"/><geometry><sphere radius="0.08"/></geometry></collision></link>
+<link name="carriage"><inertial><mass value="0.4"/><origin xyz="0 0 -0.02"/>
+<inertia ixx="0.001" iyy="0.001" izz="0.001" ixy="0" ixz="0" iyz="0"/></inertial></link>
+<joint name="slide_joint" type="prismatic"><parent link="base"/><child link="carriage"/>
+<origin xyz="0.02 0 -0.05"/><axis xyz="0 0.6 0.8"/>
+<limit lower="-0.1" upper="0.1" effort="60" velocity="3"/></joint>
+<link name="leg_foot"><inertial><mass value="0.2"/><origin xyz="0 0 -0.1"/>
+<inertia ixx="0.001" iyy="0.001" izz="0.0002" ixy="0" ixz="0" iyz="0"/></inertial>
+<collision><origin xyz="0 0 -0.2"/><geometry><sphere radius="0.03"/></geometry></collision></link>
+<joint name="knee_joint" type="revolute"><parent link="carriage"/><child link="leg_foot"/>
+<origin xyz="0 0 -0.05"/><axis xyz="0 1 0"/>
+<limit lower="-1.5" upper="1.5" effort="30" velocity="20"/></joint>
+<link name="tail"><inertial><mass value="0.3"/><origin xyz="-0.1 0 0"/>
+<inertia ixx="0.0005" iyy="0.001" izz="0.001" ixy="0" ixz="0" iyz="0"/></inertial></link>
+<joint name="tail_joint" type="revolute"><parent link="base"/><child link="tail"/>
+<origin xyz="-0.1 0 0"/><axis xyz="0 0 1"/>
+<limit lower="-1.0" upper="1.0" effort="10" velocity="20"/></joint>
+</robot>"""
+HOPPER_URDF = """<robot name="hopper">
+<link name="base"><inertial><mass value="3.0"/><origin xyz="0 0 0"/>
+<inertia ixx="0.02" iyy="0.02" izz="0.02" ixy="0" ixz="0" iyz="0"/></inertial>
+<collision><origin xyz="0 0 0"/><geometry><sphere radius="0.08"/></geometry></collision></link>
+<link name="thigh"><inertial><mass value="0.5"/><origin xyz="0 0 -0.1"/>
+<inertia ixx="0.002" iyy="0.002" izz="0.0005" ixy="0" ixz="0" iyz="0"/></inertial></link>
+<joint name="hip_joint" type="revolute"><parent link="base"/><child link="thigh"/>
+<origin xyz="0 0 -0.05"/><axis xyz="0 1 0"/>
+<limit lower="-1.5" upper="1.5" effort="30" velocity="20"/></joint>
+<link name="shank_foot"><inertial><mass value="0.2"/><origin xyz="0 0 -0.1"/>
+<inertia ixx="0.001" iyy="0.001" izz="0.0002" ixy="0" ixz="0" iyz="0"/></inertial>
+<collision><origin xyz="0 0 -0.2"/><geometry><sphere radius="0.03"/></geometry></collision></link>
+<joint name="knee_joint" type="revolute"><parent link="thigh"/><child link="shank_foot"/>
+<origin xyz="0 0 -0.2"/><axis xyz="0 1 0"/>
+<limit lower="-2.0" upper="2.0" effort="30" velocity="20"/></joint>
+</robot>"""
+
+
+def require_built(layout):
+    """A spawned rank loads the kernel libraries phase 1 built and never
+    builds one: raises when a library of ``layout`` is missing."""
+    from legged_gym_tpu_torch.physics import chain_kernel as ck
+
+    for g in ck.LANE_CHOICES:
+        if g >= layout[1]:
+            out = ck._build_spec("cuda", ck.CUDA_NUMERICS, layout, g,
+                                 ck.SOURCE)[1]
+            if not os.path.isfile(out):
+                raise RuntimeError(f"no kernel library {out}: phase 1 "
+                                   f"builds it before the ranks start")
+
+
+def go1_rough_shard():
+    """go1 rough at 1800 global envs (phase 4's cell) and its train
+    config."""
+    from legged_gym_tpu_torch import registry
+    from legged_gym_tpu_torch.scripts import kernel_numerics as kn
+
+    return kn.rough_cfg(GO1_ENVS), registry.get_cfgs("go1")[1]
+
+
+class CollectiveClock:
+    """Host seconds spent inside torch.distributed.all_reduce (the wait
+    for the card's pending work included: gloo copies a CUDA tensor to
+    the host), and the calls."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.seconds, self.calls, self._inner = 0.0, 0, dist.all_reduce
+        dist.all_reduce = self
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self._inner(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def update_from(env, tcfg, mesh, ckpt, batch):
+    """The PPO update from checkpoint ``ckpt`` on ``batch`` (cut to this
+    rank's envs): (metrics, parameters on the CPU, lr)."""
+    from legged_gym_tpu_torch.rl.ppo import batch_envs
+    from legged_gym_tpu_torch.rl.runner import PPORunner, fetch_metrics
+
+    runner = PPORunner(env, tcfg, seed=SHARD_SEED)
+    runner.load(ckpt)
+    if mesh is not None:
+        batch = batch_envs(batch, mesh.env_slice(GO1_ENVS))
+    metrics = fetch_metrics(runner.learn_fn.update(runner.train_state,
+                                                   batch))
+    ts = runner.train_state
+    return metrics, [p.detach().cpu() for p in ts.params], float(ts.lr)
+
+
+def replay(env, start, gen_start, files, mine):
+    """The env stepped from ``start`` (its generator at ``gen_start``)
+    with the unsharded rollout's actions, cut to the envs ``mine``:
+    per-step (obs, reward, done) on the CPU."""
+    actions = torch.load(files["actions"], map_location=env.device)
+    env.generator.set_state(gen_start)
+    state, steps = start, []
+    with torch.no_grad():
+        for t in range(HORIZON):
+            state, tr = env.step(state, actions[t][mine])
+            steps.append((tr.obs, tr.reward, tr.done))
+    return {k: torch.stack([s[i] for s in steps]).cpu()
+            for i, k in enumerate(("obs", "reward", "done"))}
+
+
+def sharded_rank(mesh, files, smi):
+    """Phase 9a and 9c on one rank of a gloo group on the card.
+
+    9a: go1 rough's share of 1800 envs through registry.make_env(mesh=) and
+    PPORunner: 1 + 1 iterations from randomized episode lengths
+    (the second timed, the all-reduces' host time counted), the K1
+    launches of the run; then the env replayed from its start with the
+    unsharded rollout's actions, and the update of the unsharded run's
+    second iteration (from its checkpoint, on its batch); rank 0 holds K1
+    at its share against the plain version and times it while the other
+    ranks wait. 9c: MPPI and CEM at K = MPC_K over the ranks from phase
+    6's planner stance, the K2 launches counted."""
+    from legged_gym_tpu_torch import registry
+    from legged_gym_tpu_torch.mpc import MPCConfig, SamplingMPC
+    from legged_gym_tpu_torch.physics import chain_kernel
+    from legged_gym_tpu_torch.rl.runner import PPORunner
+    from legged_gym_tpu_torch.scripts import kernel_numerics as kn
+
+    dev = mesh.device
+    out = {"rank": mesh.rank}
+    cfg, tcfg = go1_rough_shard()
+    t0 = time.perf_counter()
+    env, _ = registry.make_env(cfg=cfg, mesh=mesh)
+    require_built(chain_kernel.model_layout(env.chain_engine.cm))
+    runner = PPORunner(env, tcfg, seed=SHARD_SEED)
+    out["build_s"] = time.perf_counter() - t0
+    reset_launches()
+    with torch.no_grad():
+        runner._ensure_env_state(init_at_random_ep_len=True)
+    start, gen_start = runner.env_state, env.generator.get_state()
+    runner.learn(1)
+    clock = CollectiveClock()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    runner.learn(1)
+    torch.cuda.synchronize(dev)
+    out["iter_s"] = time.perf_counter() - t0
+    out["all_reduce_s"], out["all_reduce_calls"] = clock.seconds, clock.calls
+    out["launches"] = dict(chain_kernel.launches)
+    out["metrics"] = runner.last_metrics
+    out["params"] = [p.detach().cpu() for p in runner.train_state.params]
+
+    # the env's part of the rollout: replayed with the unsharded actions
+    out["replay"] = replay(env, start, gen_start, files,
+                           mesh.env_slice(GO1_ENVS))
+    out["update"] = update_from(env, tcfg, mesh, files["ckpt"],
+                                torch.load(files["batch"], map_location=dev))
+
+    # K1 at the rank's share: held and timed on rank 0 alone
+    if mesh.rank == 0:
+        with torch.no_grad():
+            hold_at("phase 9a K1 at a rank's share, after the run", env,
+                    runner.env_state, smi)
+            out["k1"] = time_kernel(
+                f"phase 9a K1 go1 rough, {env.num_envs} envs (1 of "
+                f"{mesh.world_size} ranks)", kn.step_consts(env),
+                kn.kernel_args(env, runner.env_state), None, smi)
+    mesh.all_sum(torch.zeros(1, device=dev))
+    del runner, env
+
+    # 9c: the planners over the ranks
+    menv, _ = mpc_env("go1", "trimesh", settle=0)
+    stance = load_stance(files["stance"], dev)
+    commands = torch.tensor([0.8, 0.0, 0.0], device=dev)
+    mcfg = MPCConfig(horizon=MPC_HORIZON, num_samples=MPC_K,
+                     noise_std=0.3, temperature=0.05, cem_iters=5,
+                     cem_elite_frac=0.05)
+    gen = torch.Generator(device=dev).manual_seed(SHARD_SEED)
+    plans = {}
+    reset_launches()
+    for method in ("mppi", "cem"):
+        seq, info = SamplingMPC(menv, mcfg, method, mesh=mesh).plan(
+            gen, stance[0], *stance[1:], commands)
+        plans[method] = (seq.cpu(), float(info["best_cost"]))
+    out["plans"] = plans
+    out["mpc_launches"] = dict(chain_kernel.launches)
+    mppi = SamplingMPC(menv, mcfg, "mppi", mesh=mesh)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_MPC_TIMED):
+        float(mppi.plan(gen, stance[0], *stance[1:], commands)[1]
+              ["best_cost"])
+    out["mppi_s"] = (time.perf_counter() - t0) / SHARD_MPC_TIMED
+    out["mpc_launches_all"] = dict(chain_kernel.launches)
+    return out
+
+
+def nccl_rank(mesh, files):
+    """Phase 9b on a 1-rank NCCL group: the first rollout of go1 rough at
+    1800 envs from the common start (the actor's first means and the
+    rollout's drift returned), the env replayed from that start with the
+    unsharded actions, and the second iteration's update from the
+    unsharded checkpoint on the unsharded batch. The rank's initial
+    observations and parameters must be the parent's to the bit; the
+    actor is evaluated on the parent's saved observations too."""
+    from legged_gym_tpu_torch import registry
+    from legged_gym_tpu_torch.physics import chain_kernel
+    from legged_gym_tpu_torch.rl import networks as nets
+    from legged_gym_tpu_torch.rl.runner import PPORunner, fetch_metrics
+
+    cfg, tcfg = go1_rough_shard()
+    env, _ = registry.make_env(cfg=cfg, mesh=mesh)
+    require_built(chain_kernel.model_layout(env.chain_engine.cm))
+    runner = PPORunner(env, tcfg, seed=SHARD_SEED)
+    reset_launches()
+    parent = torch.load(files["inputs"])
+    with torch.no_grad():
+        runner._ensure_env_state(init_at_random_ep_len=True)
+        model = runner.train_state.model
+        if not torch.equal(runner.obs.cpu(), parent["obs"]):
+            raise AssertionError("phase 9b: the rank's initial observations "
+                                 "are not the unsharded run's")
+        if not all(torch.equal(p.detach().cpu(), q) for p, q in
+                   zip(runner.train_state.params, parent["params"])):
+            raise AssertionError("phase 9b: the rank's initial parameters "
+                                 "are not the unsharded run's")
+        first_mean = nets.actor_mean(model, runner.obs).cpu()
+        on_parent_obs = nets.actor_mean(
+            model, parent["obs"].to(mesh.device)).cpu()
+    start, gen_start = runner.env_state, env.generator.get_state()
+    ts = runner.train_state
+    _, _, batch = runner.learn_fn.rollout(ts, start, runner.obs)
+    launches = dict(chain_kernel.launches)
+    rollout = {k: batch[k].cpu() for k in ("obs", "action", "reward",
+                                           "done")}
+    own = (fetch_metrics(runner.learn_fn.update(ts, batch)),
+           [p.detach().cpu() for p in ts.params], float(ts.lr))
+    return {"first_mean": first_mean, "on_parent_obs": on_parent_obs,
+            "rollout": rollout, "own_update": own, "launches": launches,
+            "replay": replay(env, start, gen_start, files,
+                             slice(None)),
+            "update": update_from(env, tcfg, mesh, files["ckpt"],
+                                  torch.load(files["batch"],
+                                             map_location=mesh.device))}
+
+
+def unsharded_reference(tmp, stance, smi):
+    """Phase 9's references on the parent, unsharded, on the card: go1
+    rough at 1800 envs from the same seed and start, its first rollout
+    (kept: actions, obs, rewards, dones), its first update, the checkpoint,
+    its second rollout's batch and update (timed); the actor's row
+    difference at half the rows; MPPI and CEM from phase 6's stance with
+    the ranks' draws. Files for the ranks go to ``tmp``."""
+    from legged_gym_tpu_torch import registry
+    from legged_gym_tpu_torch.mpc import MPCConfig, SamplingMPC
+    from legged_gym_tpu_torch.rl import networks as nets
+    from legged_gym_tpu_torch.rl.runner import PPORunner, fetch_metrics
+
+    cfg, tcfg = go1_rough_shard()
+    env, _ = registry.make_env(cfg=cfg, device=DEVICE)
+    runner = PPORunner(env, tcfg, seed=SHARD_SEED)
+    ts, fn = runner.train_state, runner.learn_fn
+    with torch.no_grad():
+        runner._ensure_env_state(init_at_random_ep_len=True)
+        # the finding behind phase 9a's design: the actor's rows at 900
+        # and at 1800 rows
+        obs = runner.obs
+        half = GO1_ENVS // SHARD_RANKS
+        whole = nets.actor_mean(ts.model, obs)
+        parts = torch.cat([nets.actor_mean(ts.model, obs[:half]),
+                           nets.actor_mean(ts.model, obs[half:])])
+        row_diff = float((whole - parts).abs().max())
+        first_mean = whole.cpu()
+        # phase 9b's inputs: the initial observations and parameters, and
+        # the actor again in this process on a copy of the observations
+        inputs = {"obs": obs.cpu(),
+                  "params": [p.detach().cpu() for p in ts.params]}
+        again = nets.actor_mean(ts.model, inputs["obs"].to(DEVICE)).cpu()
+    print(f"phase 9a actor mean at {GO1_ENVS} rows vs in {SHARD_RANKS} "
+          f"parts of {half} rows: max |diff| {row_diff:.3e} "
+          f"({int((whole != parts).any(dim=1).sum())} of {GO1_ENVS} rows "
+          f"differ) [{smi}]")
+    env_state, obs_pack, first = fn.rollout(ts, runner.env_state,
+                                            runner.obs)
+    metrics1 = fetch_metrics(fn.update(ts, first))
+    first_update = {"metrics": metrics1, "lr": float(ts.lr),
+                    "params": [p.detach().cpu() for p in ts.params]}
+    files = {k: os.path.join(tmp, f"{k}.pt") for k in
+             ("actions", "batch", "stance", "ckpt", "inputs")}
+    torch.save(inputs, files["inputs"])
+    runner.save(files["ckpt"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, second = fn.rollout(ts, env_state, obs_pack)
+    metrics = fetch_metrics(fn.update(ts, second))
+    iter_s = time.perf_counter() - t0
+    torch.save(first["action"].cpu(), files["actions"])
+    torch.save({k: (v.cpu() if torch.is_tensor(v) else v)
+                for k, v in second.items() if k != "ep_sums"}
+               | {"ep_sums": {k: v.cpu()
+                              for k, v in second["ep_sums"].items()}},
+               files["batch"])
+    phys, lp, fr = stance
+    torch.save({"pos": phys.pos, "quat": phys.quat, "vel": phys.vel,
+                "q": phys.q, "qd": phys.qd, "lp": lp, "fr": fr},
+               files["stance"])
+    ref = {"first": {k: first[k].cpu() for k in ("obs", "action", "reward",
+                                                  "done", "value")},
+           "metrics": metrics, "iter_s": iter_s,
+           "params": [p.detach().cpu() for p in ts.params],
+           "lr": float(ts.lr), "row_diff": row_diff,
+           "first_mean": first_mean, "first_mean_again": again,
+           "first_update": first_update}
+    del runner, env
+
+    menv, _ = mpc_env("go1", "trimesh", settle=0)
+    commands = torch.tensor([0.8, 0.0, 0.0], device=DEVICE)
+    mcfg = MPCConfig(horizon=MPC_HORIZON, num_samples=MPC_K,
+                     noise_std=0.3, temperature=0.05, cem_iters=5,
+                     cem_elite_frac=0.05)
+    gen = torch.Generator(device=DEVICE).manual_seed(SHARD_SEED)
+    ref["plans"] = {}
+    with torch.no_grad():
+        for method in ("mppi", "cem"):
+            seq, info = SamplingMPC(menv, mcfg, method).plan(
+                gen, stance[0], *stance[1:], commands)
+            ref["plans"][method] = (seq.cpu(), float(info["best_cost"]))
+        mppi = SamplingMPC(menv, mcfg, "mppi")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_MPC_TIMED):
+            float(mppi.plan(gen, stance[0], *stance[1:], commands)[1]
+                  ["best_cost"])
+    ref["mppi_s"] = (time.perf_counter() - t0) / SHARD_MPC_TIMED
+    return ref, files
+
+
+def load_stance(path, dev):
+    """An N=1 (physics, link params, friction) saved by
+    unsharded_reference."""
+    from legged_gym_tpu_torch.physics.state import PhysicsState
+
+    d = torch.load(path, map_location=dev)
+    return (PhysicsState(d["pos"], d["quat"], d["vel"], d["q"], d["qd"]),
+            d["lp"], d["fr"])
+
+
+def max_param_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def check_update(tag, got, ref, smi,
+                 what="update of the second iteration from the unsharded "
+                      "checkpoint on the unsharded batch"):
+    """One rank's update against the unsharded one: loss within 1e-4
+    relative, every parameter within 1e-4, the same learning rate."""
+    metrics, params, lr = got
+    loss, ref_loss = metrics["loss"], ref["metrics"]["loss"]
+    err = max_param_diff(params, ref["params"])
+    print(f"{tag}: {what}: loss {loss:.7f} vs "
+          f"{ref_loss:.7f}, max parameter diff {err:.3e} (tol "
+          f"{SHARD_PARAM_ATOL:g}), lr {lr:.3e} vs {ref['lr']:.3e}, kl "
+          f"{metrics['kl']:.5f} vs {ref['metrics']['kl']:.5f} [{smi}]")
+    if not (abs(loss - ref_loss) < SHARD_LOSS_RTOL * max(1.0, abs(ref_loss))
+            and err < SHARD_PARAM_ATOL and lr == ref["lr"]):
+        fail(f"{tag}: the sharded update differs from the unsharded one")
+    return params
+
+
+def row_diff(mean, ref):
+    """The actor's means against the parent's first ones, for a print."""
+    d = mean - ref["first_mean"]
+    return (f"max |diff| {float(d.abs().max()):.3e} "
+            f"({int((d != 0).any(dim=1).sum())} of {d.shape[0]} rows "
+            f"differ)")
+
+
+def check_rollout(tag, got, ref, n_envs, smi, shift):
+    """A rank's rollout outputs against its envs of the unsharded ones:
+    per env, obs and rewards within STATE_ATOL and the same dones; at most
+    SWITCH_ENVS_SHARE of the envs over (phase 2's rule for a contact that
+    rounding flips). ``shift``: the observations are the step's outputs
+    (the unsharded batch's next step's inputs)."""
+    from legged_gym_tpu_torch.scripts import kernel_numerics as kn
+
+    obs_ref = ref["obs"][shift:]
+    obs_got = got["obs"][:obs_ref.shape[0]]
+    e_obs = (obs_got - obs_ref).abs().amax(dim=(0, 2))
+    e_rew = (got["reward"] - ref["reward"]).abs().amax(dim=0)
+    done_diff = (got["done"] != ref["done"]).any(dim=0)
+    over = int(((e_obs > kn.STATE_ATOL) | (e_rew > kn.STATE_ATOL)
+                | done_diff).sum())
+    allowed = int(kn.SWITCH_ENVS_SHARE * n_envs)
+    print(f"{tag}: {HORIZON} steps, {n_envs} envs: max |obs diff| "
+          f"{float(e_obs.max()):.3e}, max |reward diff| "
+          f"{float(e_rew.max()):.3e}, dones differ in "
+          f"{int(done_diff.sum())} envs; envs over {kn.STATE_ATOL:g}: "
+          f"{over} (allowed {allowed}) [{smi}]")
+    if over > allowed:
+        fail(f"{tag}: {over} envs off the unsharded rollout")
+
+
+def general_tree_on_card(smi):
+    """Phase 9e: the prismatic slider (implicit law) and the hopper with
+    the explicit spring law, TREE_STEPS general-engine sim dts from a
+    seeded stance on the plane, on the card against the same on the
+    CPU."""
+    import numpy as np
+
+    from legged_gym_tpu_torch.model.robot import compile_model
+    from legged_gym_tpu_torch.physics.contact import ContactConfig
+    from legged_gym_tpu_torch.physics.engine import Engine, SimConfig
+    from legged_gym_tpu_torch.physics.params import broadcast_nominal
+    from legged_gym_tpu_torch.physics.state import PhysicsState
+
+    n = 256
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, urdf, implicit, z in (("slider", SLIDER_URDF, True, 0.385),
+                                        ("hopper", HOPPER_URDF, False,
+                                         0.475)):
+            path = os.path.join(tmp, f"{name}.urdf")
+            with open(path, "w") as f:
+                f.write(urdf)
+            model = compile_model(path)
+            eng = Engine(model, SimConfig(
+                contact=ContactConfig(implicit=implicit)),
+                kp=np.full(model.nq, 40.0), kd=np.full(model.nq, 1.0))
+            g = torch.Generator().manual_seed(3)
+            quat = torch.zeros((4, n))
+            quat[3] = 1.0
+            st = {"pos": torch.stack([0.1 * torch.randn(n, generator=g),
+                                      0.1 * torch.randn(n, generator=g),
+                                      torch.full((n,), z)]),
+                  "quat": quat,
+                  "vel": 0.2 * torch.randn((6, n), generator=g),
+                  "q": 0.05 * torch.randn((model.nq, n), generator=g),
+                  "qd": 0.3 * torch.randn((model.nq, n), generator=g)}
+            outs = {}
+            for dev in ("cpu", DEVICE):
+                phys = PhysicsState(**{k: v.to(dev) for k, v in st.items()})
+                lp = broadcast_nominal(model, n, device=dev)
+                fr = torch.ones(n, device=dev)
+                targets = torch.zeros((model.nq, n), device=dev)
+                with torch.no_grad():
+                    for _ in range(TREE_STEPS):
+                        phys, info = eng.step_pos_targets(phys, lp, fr,
+                                                          targets)[:2]
+                outs[dev] = [t.cpu() for t in (phys.pos, phys.quat,
+                                               phys.vel, phys.q, phys.qd,
+                                               info.torques,
+                                               info.body_forces)]
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(outs["cpu"], outs[DEVICE]))
+            touching = int((outs[DEVICE][6][2].sum(dim=0) > 1.0).sum())
+            print(f"phase 9e {name} ({'prismatic joint, implicit' if implicit else 'explicit spring'} "
+                  f"law), {n} envs, {TREE_STEPS} general-engine sim dts: "
+                  f"max |card - CPU| {err:.3e} (tol {TREE_ATOL:g}), "
+                  f"{touching} envs touching [{smi}]")
+            if not err <= TREE_ATOL or touching == 0:
+                fail(f"phase 9e {name}: card vs CPU {err}, {touching} "
+                     f"envs touching")
+
+
+def sharded_phase(stances, smi):
+    """Phase 9: the env axis split over ranks. Returns the K1 and K2
+    entries' sharded fields."""
+    from legged_gym_tpu_torch.parallel import run_ranks
+    from legged_gym_tpu_torch.scripts import bench_scaling
+    from legged_gym_tpu_torch.scripts import kernel_numerics as kn
+
+    t9 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, files = unsharded_reference(tmp, stances["planner"], smi)
+        print(f"phase 9 references (unsharded, on the card): "
+              f"{time.perf_counter() - t9:.1f} s [{smi}]")
+
+        # 9a + 9c: 2 ranks of a gloo group on the one card
+        t0 = time.perf_counter()
+        ranks = run_ranks(sharded_rank, SHARD_RANKS, backend="gloo",
+                          device=DEVICE, timeout_s=SHARD_TIMEOUT_S,
+                          args=(files, smi))
+        wall_a = time.perf_counter() - t0
+        half = GO1_ENVS // SHARD_RANKS
+        for r in ranks:
+            tag = f"phase 9a rank {r['rank']} of {SHARD_RANKS} (gloo)"
+            launches = r["launches"]
+            want = 1 + 2 * HORIZON
+            if launches["K1"] != want or sum(launches.values()) != want:
+                fail(f"{tag}: kernel launches {launches} in {want} policy "
+                     f"steps")
+            m = r["metrics"]
+            flat = [v for v in m.values() if isinstance(v, float)]
+            if not all(math.isfinite(v) for v in
+                       flat + list(m["episode"].values())):
+                fail(f"{tag}: non-finite metrics {m}")
+            lo = r["rank"] * half
+            mine = {k: v[:, lo:lo + half] for k, v in ref["first"].items()}
+            check_rollout(f"{tag}: the env replayed with the unsharded "
+                          f"actions", r["replay"], mine, half, smi, shift=1)
+            check_update(tag, r["update"], ref, smi)
+        params = [r["params"] for r in ranks]
+        if not all(torch.equal(a, b) for p in params[1:]
+                   for a, b in zip(params[0], p)):
+            fail("phase 9a: the ranks' parameters differ")
+        drift = max_param_diff(params[0], ref["params"])
+        iter_s = max(r["iter_s"] for r in ranks)
+        share = max(r["all_reduce_s"] / r["iter_s"] for r in ranks)
+        print(f"phase 9a: the whole run (2 iterations, 2 ranks): parameters "
+              f"equal on the ranks; against the unsharded run max parameter "
+              f"drift {drift:.3e}, loss {ranks[0]['metrics']['loss']:.7f} vs "
+              f"{ref['metrics']['loss']:.7f}; K1 {want} launches per rank "
+              f"[{smi}]")
+        print(f"phase 9a: the second iteration {iter_s:.3f} s on "
+              f"{SHARD_RANKS} ranks = {HORIZON * GO1_ENVS / iter_s:.0f} "
+              f"policy-steps/s, unsharded {ref['iter_s']:.3f} s = "
+              f"{HORIZON * GO1_ENVS / ref['iter_s']:.0f}; all-reduce host "
+              f"time {share:.3f} of the iteration ("
+              f"{ranks[0]['all_reduce_calls']} calls, {ranks[0]['all_reduce_s']:.3f} s on rank 0); "
+              f"ranks built in {max(r['build_s'] for r in ranks):.1f} s "
+              f"[{smi}]")
+
+        # 9c: the planners over the ranks
+        for method in ("mppi", "cem"):
+            seq_ref, best_ref = ref["plans"][method]
+            for r in ranks:
+                seq, best = r["plans"][method]
+                err = float((seq - seq_ref).abs().max())
+                if not (torch.allclose(seq, seq_ref, rtol=PLAN_RTOL,
+                                       atol=PLAN_ATOL)
+                        and abs(best - best_ref) <= PLAN_ATOL
+                        + PLAN_RTOL * abs(best_ref)):
+                    fail(f"phase 9c {method} rank {r['rank']}: plan off "
+                         f"the unsharded one by {err}, best cost {best} vs "
+                         f"{best_ref}")
+            print(f"phase 9c {method.upper()} K={MPC_K} over {SHARD_RANKS} "
+                  f"ranks ({MPC_K // SHARD_RANKS} each): plan vs unsharded "
+                  f"max |diff| {err:.3e} (rtol {PLAN_RTOL:g}, atol "
+                  f"{PLAN_ATOL:g}), best cost {best:.5f} vs {best_ref:.5f} "
+                  f"[{smi}]")
+        k2_sharded = 0
+        for r in ranks:
+            want = MPC_HORIZON * (1 + 5)        # one MPPI, 5 CEM refits
+            got = r["mpc_launches"]
+            if got["K2"] != want or sum(got.values()) != want:
+                fail(f"phase 9c rank {r['rank']}: launches {got}, {want} "
+                     f"K2 expected")
+            k2_sharded += r["mpc_launches_all"]["K2"]
+        mppi_s = max(r["mppi_s"] for r in ranks)
+        print(f"phase 9c: MPPI solve {1e3 * mppi_s:.2f} ms on "
+              f"{SHARD_RANKS} ranks, {1e3 * ref['mppi_s']:.2f} ms "
+              f"unsharded; {MPC_HORIZON} K2 launches per rank per MPPI "
+              f"solve; 9a + 9c {wall_a:.1f} s [{smi}]")
+
+        # 9b: a 1-rank NCCL group
+        t0 = time.perf_counter()
+        (one,) = run_ranks(nccl_rank, 1, backend="nccl", device=DEVICE,
+                           timeout_s=SHARD_TIMEOUT_S, args=(files,))
+        want = 1 + HORIZON
+        if one["launches"]["K1"] != want \
+                or sum(one["launches"].values()) != want:
+            fail(f"phase 9b: launches {one['launches']}")
+        first = ref["first"]
+        check_rollout("phase 9b 1 rank (NCCL): the env replayed with the "
+                      "unsharded actions", one["replay"], first, GO1_ENVS,
+                      smi, shift=1)
+        check_update("phase 9b 1 rank (NCCL)", one["update"], ref, smi)
+        drift = {k: float((one["rollout"][k].float()
+                           - first[k].float()).abs().max())
+                 for k in ("action", "obs", "reward")}
+        off = int((one["rollout"]["done"] != first["done"]).any(dim=0)
+                  .sum())
+        print(f"phase 9b: the rank's initial observations and parameters "
+              f"equal the parent's to the bit; the actor at those "
+              f"{GO1_ENVS} rows against the parent's: the rank on its own "
+              f"observations {row_diff(one['first_mean'], ref)}, the rank "
+              f"on the parent's saved observations "
+              f"{row_diff(one['on_parent_obs'], ref)}, the parent again on "
+              f"a copy of its observations "
+              f"{row_diff(ref['first_mean_again'], ref)} [{smi}]")
+        print(f"phase 9b: the rank's own rollout (policy and "
+              f"draws) against the unsharded one: max |diff| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in drift.items())
+              + f", dones differ in {off} envs [{smi}]")
+        # the rank's own first iteration equals the unsharded one
+        check_rollout("phase 9b 1 rank (NCCL): its own first rollout",
+                      one["rollout"], first, GO1_ENVS, smi, shift=0)
+        check_update("phase 9b 1 rank (NCCL)", one["own_update"],
+                     ref["first_update"], smi,
+                     what="its own first update")
+        print(f"phase 9b: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # 9d: bench_scaling on the card
+    t0 = time.perf_counter()
+    scaling = bench_scaling.run(SCALING_ENVS, [1, SHARD_RANKS],
+                                device=DEVICE, timeout_s=SHARD_TIMEOUT_S)
+    print(f"phase 9d bench_scaling go1 {SCALING_ENVS} envs: "
+          + "; ".join(f"{nr} ranks {v['env_steps_per_s']:.0f} env-steps/s "
+                      f"({v['backend']})" for nr, v in scaling.items())
+          + f"; {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # 9e: the general tree on the card
+    t0 = time.perf_counter()
+    general_tree_on_card(smi)
+    print(f"phase 9e: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # K2 at a rank's share of the candidates, from the riser stance
+    r_env, stance = stances["riser"]
+    k = MPC_K // SHARD_RANKS
+    tag = f"phase 9c K2 go1 trimesh MPC step, {k} rollouts (1 of {SHARD_RANKS} ranks)"
+    gen = torch.Generator(device=DEVICE).manual_seed(SHARD_SEED)
+    cc = r_env.chain_engine.cc
+    with torch.no_grad():
+        args = mpc_step_args(r_env, *stance, gen, k=k)
+        errs, _ = hold_kernel(f"{tag} [riser stance]", "K2", cc, args, None,
+                              smi, settled=True,
+                              switch_share=kn.SWITCH_ENVS_SHARE,
+                              floors=(k // 2, 10))
+        k2 = time_kernel(f"{tag} [riser stance]", cc, args, None, smi)
+    k1 = ranks[0]["k1"]
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s [{smi}]")
+    return ({"launches_sharded": sum(r["launches"]["K1"] for r in ranks)
+             + one["launches"]["K1"],
+             "sharded_shape": f"go1 rough, {half} envs (1 of "
+                              f"{SHARD_RANKS} ranks)",
+             "sharded_ms": k1["ms"], "sharded_plain_ms": k1["plain_ms"],
+             "sharded_bound_ms": k1["bound_ms"],
+             "sharded_bound_by": k1["bound_by"]},
+            {"launches_sharded": k2_sharded,
+             "mpc_sharded_shape": f"go1 trimesh, {k} envs (1 of "
+                                  f"{SHARD_RANKS} ranks), riser stance",
+             "mpc_sharded_max_abs_err": max(errs[n] for n in kn.NAMES[:6]),
+             "mpc_sharded_ms": k2["ms"],
+             "mpc_sharded_plain_ms": k2["plain_ms"],
+             "mpc_sharded_bound_ms": k2["bound_ms"],
+             "mpc_sharded_bound_by": k2["bound_by"]})
 
 
 def main():
@@ -1497,22 +2192,27 @@ def main():
         other_drive(over, smi)
 
     # ---- phases 6-8: MPC, the recurrent policy, play / export / teleop ----
-    mpc_entry, k2_mpc, k4_mpc = mpc_phase(smi)
+    mpc_entry, k2_mpc, k4_mpc, stances = mpc_phase(smi)
     k1_lstm, lstm_runner = lstm_phase(smi)
     k1_play = play_phase(go1_runner, lstm_runner, smi)
+    del go1_runner, lstm_runner, env, flat_env, flat_runner, go1_env
 
-    # ---- phase 9: kernel table, card, result ----
+    # ---- phase 9: the env axis split over ranks, the general tree ----
+    k1_sharded, k2_sharded = sharded_phase(stances, smi)
+
+    # ---- phase 10: kernel table, card, result ----
     line = {"kernels": [
         dict({"name": "run_decimation (K1)",
               "route": "cuda",
               "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",
               "replaces": "legged_gym_tpu/physics/pallas_step.py:67",
               "config": "K1",
-              "launches": rollout_launches + k1_train + k1_lstm + k1_play,
+              "launches": rollout_launches + k1_train + k1_lstm + k1_play
+              + k1_sharded["launches_sharded"],
               "launches_rollout": rollout_launches,
               "launches_train": k1_train,
               "launches_train_lstm": k1_lstm,
-              "launches_play_teleop": k1_play}, **entry_k1),
+              "launches_play_teleop": k1_play}, **entry_k1, **k1_sharded),
         dict({"name": "run_decimation (K4)",
               "route": "cuda",
               "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",
@@ -1526,9 +2226,11 @@ def main():
               "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",
               "replaces": "legged_gym_tpu/physics/pallas_step.py:67",
               "config": "K2",
-              "launches": k2_train + k2_mpc,
+              "launches": k2_train + k2_mpc
+              + k2_sharded["launches_sharded"],
               "launches_train": k2_train,
-              "launches_mpc": k2_mpc}, **entry_k2, **mpc_entry),
+              "launches_mpc": k2_mpc}, **entry_k2, **mpc_entry,
+             **k2_sharded),
         dict({"name": "run_decimation (K3)",
               "route": "cuda",
               "source": "legged_gym_tpu_torch/physics/csrc/chain_step.cu",

@@ -11,13 +11,24 @@ them:
 - the general stacked engine (physics/engine.py, plain torch ops) when
   self-collision pairs remain after the rest filter (anymal_c_flat), body
   damping is set, ``sim.use_chain_engine`` is off, an applied UniNet is
-  configured, or the control type is V or T without the SEA net. A config
-  that should take the chain path and cannot build it raises.
+  configured, the control type is V or T without the SEA net, the model
+  has a prismatic joint, or the contact law is the explicit spring. A
+  config that should take the chain path and cannot build it raises.
 Plane, heightfield or trimesh terrain; with or without warm-start friction
 anchors (per point group on the chain path, one stacked (3, P, N) array on
 the general engine). With ``env.num_privileged_obs`` set, each Transition
 also carries the asymmetric critic's privileged observations. The env
 simulates exactly ``num_envs`` envs.
+
+Split over ranks (``mesh``, parallel/sharding.py), the env simulates its
+rank's ``num_envs / world`` envs and gives them the numbers the unsharded
+env gives them: the host-side layout (spawn origins, terrain types and
+levels) is computed at the global count and cut to the rank's range;
+every draw over the env axis is taken at the global count from the
+generator, seeded alike on every rank, and cut the same way; the episode
+statistics of a Transition and the command curriculum's decision are
+summed over the ranks (one all-reduce per step), so ``lin_vel_x_range``
+stays replicated. The physics sees only the rank's envs.
 
 Layout: internal tensors are batch-LAST; the policy boundary (obs /
 actions) is batch-first. Random draws come from one ``torch.Generator``
@@ -44,6 +55,7 @@ import torch
 from legged_gym_tpu_torch import assets
 from legged_gym_tpu_torch.model.robot import compile_model
 from legged_gym_tpu_torch.ops import quat as quat_ops
+from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_env_state
 from legged_gym_tpu_torch.physics.chain_engine import ChainEngine
 from legged_gym_tpu_torch.physics.contact import (ANCHOR_SENTINEL,
                                                   ContactConfig)
@@ -105,6 +117,7 @@ class Transition:
     reward: torch.Tensor             # (N,)
     done: torch.Tensor               # (N,) bool (term | timeout)
     time_out: torch.Tensor           # (N,) bool
+    # () floats over the envs of every rank when the env axis is split
     episode_sums: dict               # name -> () float, finished envs
     episode_count: torch.Tensor      # () float
     episode_length_sum: torch.Tensor  # () float
@@ -133,9 +146,15 @@ def _match_gains(dof_names, table, kind):
 class LeggedEnv:
     """Host-side constructor + step/reset methods on ``device``."""
 
-    def __init__(self, cfg, seed=0, device="cuda"):
+    def __init__(self, cfg, seed=0, device="cuda", mesh=None):
+        """``mesh``: an EnvMesh (parallel/sharding.py) to simulate this
+        rank's share of ``cfg.env.num_envs`` on ``mesh.device``."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"{mesh.device}")
         self.dtype = torch.float32
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -156,7 +175,12 @@ class LeggedEnv:
         if self._sea is None and ctrl.control_type not in ("P", "V", "T"):
             raise ValueError(f"control_type {ctrl.control_type!r}: P, V "
                              "or T")
-        self.num_envs = cfg.env.num_envs
+        # global env count; this rank's range of it, and its size
+        self.num_envs_global = cfg.env.num_envs
+        self._envs = (slice(None) if mesh is None
+                      else mesh.env_slice(self.num_envs_global))
+        self.num_envs = (self.num_envs_global if mesh is None
+                         else mesh.local_count(self.num_envs_global))
         self.dt = cfg.control.decimation * cfg.sim.dt     # policy dt
         self.max_episode_length_s = cfg.env.episode_length_s
         self.max_episode_length = int(
@@ -203,15 +227,16 @@ class LeggedEnv:
         self.hip_idx = np.array(m.match_dofs("hip"), dtype=np.int64)
 
         # --- terrain ---
-        mesh = cfg.terrain.mesh_type
-        if mesh not in ("heightfield", "trimesh"):
+        mesh_type = cfg.terrain.mesh_type
+        if mesh_type not in ("heightfield", "trimesh"):
             cfg.terrain.curriculum = False
         self.terrain = None
         self.grid: Optional[TerrainGrid] = None
-        if mesh in ("heightfield", "trimesh"):
-            self.terrain = Terrain(cfg.terrain, self.num_envs, seed=seed)
+        if mesh_type in ("heightfield", "trimesh"):
+            self.terrain = Terrain(cfg.terrain, self.num_envs_global,
+                                   seed=seed)
             self.grid = self.terrain.grid(self.device)
-        self.custom_origins = mesh in ("heightfield", "trimesh")
+        self.custom_origins = mesh_type in ("heightfield", "trimesh")
         self._init_origins(seed)
 
         # --- engine, then the fused chain physics where it applies ---
@@ -253,6 +278,8 @@ class LeggedEnv:
                                   or cfg.asset.angular_damping)),
             ("use_chain_engine off", not cfg.sim.use_chain_engine),
             ("applied UniNet", self._uninet is not None),
+            ("prismatic joints", bool(np.any(m.joint_is_prismatic))),
+            ("explicit contact", not simcfg.contact.implicit),
             (f"control_type {ctrl.control_type}",
              self._sea is None and ctrl.control_type != "P")) if hit]
         self.chain_engine = None
@@ -265,7 +292,7 @@ class LeggedEnv:
 
         # --- height scan (legged_robot.py:802-816) ---
         self.measure_heights = (cfg.terrain.measure_heights
-                                and mesh != "none")
+                                and mesh_type != "none")
         px = np.asarray(cfg.terrain.measured_points_x)
         py = np.asarray(cfg.terrain.measured_points_y)
         gx, gy = np.meshgrid(px, py, indexing="ij")
@@ -361,8 +388,9 @@ class LeggedEnv:
             self._cell_c0_t = torch.as_tensor(self._cell_c0, device=dev)
 
     def _init_origins(self, seed):
-        """Spawn origins (reference _get_env_origins, legged_robot.py:742-767)."""
-        n = self.num_envs
+        """Spawn origins (reference _get_env_origins, legged_robot.py:742-767)
+        of the global envs, cut to this rank's."""
+        n = self.num_envs_global
         rng = np.random.default_rng(seed + 1)
         if self.custom_origins:
             tcfg = self.cfg.terrain
@@ -390,7 +418,9 @@ class LeggedEnv:
             origins = np.zeros((n, 3))
             origins[:, 0] = sp * xx.ravel()[:n]
             origins[:, 1] = sp * yy.ravel()[:n]
-        self.init_env_origins = origins.T                    # (3, N)
+        self.init_terrain_levels = self.init_terrain_levels[self._envs]
+        self.terrain_types = self.terrain_types[self._envs]
+        self.init_env_origins = origins.T[:, self._envs]     # (3, N)
 
         # terrain window cache: a 4 m window per env in the state,
         # re-extracted every `patch_refresh` steps; reset envs get their
@@ -456,6 +486,29 @@ class LeggedEnv:
                        device=self.device)
         return lo + (hi - lo) * u
 
+    def _drawn(self, n):
+        """The env count a draw over ``n`` envs is taken at: split over
+        ranks, every rank's (``_mine`` then keeps this rank's)."""
+        if self.mesh is None:
+            return n
+        if n != self.num_envs:
+            raise ValueError(f"a sharded env draws for its {self.num_envs} "
+                             f"envs, not {n}")
+        return self.num_envs_global
+
+    def _mine(self, x):
+        """This rank's part of a draw over the global envs (last axis)."""
+        return shard_env_state(x, self.mesh, self.num_envs_global)
+
+    def _uniform_envs(self, lead, n, lo, hi):
+        """U(lo, hi) of shape ``lead + (n,)`` over the env axis."""
+        return self._mine(self._uniform(lead + (self._drawn(n),), lo, hi))
+
+    def _randint_envs(self, high, n, dtype=torch.int64):
+        return self._mine(torch.randint(
+            0, high, (self._drawn(n),), generator=self.generator,
+            device=self.device, dtype=dtype))
+
     # ------------------------------------------------------------- resets
 
     def _draw_friction(self, n):
@@ -467,9 +520,7 @@ class LeggedEnv:
                               dtype=self.dtype, device=self.device)
         lo, hi = dr.friction_range
         buckets = self._uniform((dr.num_friction_buckets,), lo, hi)
-        idx = torch.randint(0, dr.num_friction_buckets, (n,),
-                            generator=self.generator, device=self.device)
-        return buckets[idx]
+        return buckets[self._randint_envs(dr.num_friction_buckets, n)]
 
     def _draw_mass_scales(self, n):
         """Per-original-body mass scales: base + U(added_mass_range) kg,
@@ -481,12 +532,12 @@ class LeggedEnv:
                             device=self.device)
         if dr.randomize_base_mass:
             base_mass = float(m.contrib[m.orig_is_base, 0].sum())
-            add = self._uniform((n,), *dr.added_mass_range)
+            add = self._uniform_envs((), n, *dr.added_mass_range)
             base_scale = 1.0 + add / max(base_mass, 1e-9)
             scales = torch.where(self._is_base, base_scale[None, :], scales)
         if dr.randomize_limb_mass:
-            mult = 1.0 + self._uniform((m.n_orig, n),
-                                       *dr.added_limb_percentage)
+            mult = 1.0 + self._uniform_envs((m.n_orig,), n,
+                                            *dr.added_limb_percentage)
             scales = torch.where(self._is_base, scales, scales * mult)
         return scales
 
@@ -506,14 +557,14 @@ class LeggedEnv:
         n = origins.shape[-1]
         ist = self.cfg.init_state
         lo, hi = ist.dof_spawn_range
-        q = self._dflt * self._uniform((self.num_dof, n), lo, hi)
+        q = self._dflt * self._uniform_envs((self.num_dof,), n, lo, hi)
         pos = origins + self._spawn_pos
         if self.custom_origins:
-            dxy = self._uniform((2, n), -1.0, 1.0)
+            dxy = self._uniform_envs((2,), n, -1.0, 1.0)
             pos = torch.cat([pos[:2] + dxy, pos[2:]], dim=0)
         quat = self._spawn_rot.expand(4, n)
         sv = float(ist.spawn_vel)
-        base_vel = self._uniform((6, n), -sv, sv)
+        base_vel = self._uniform_envs((6,), n, -sv, sv)
         pos = self._depenetrate_spawn(pos, quat, q)
         return PhysicsState.from_world_vel(
             pos=pos, quat=quat, lin_vel_w=base_vel[:3],
@@ -543,15 +594,15 @@ class LeggedEnv:
         cfg = self.cfg.commands
         n = commands.shape[-1]
         r = cfg.ranges
-        vx = self._uniform((n,), 0.0, 1.0)
-        vy = self._uniform((n,), *r["lin_vel_y"])
+        vx = self._uniform_envs((), n, 0.0, 1.0)
+        vy = self._uniform_envs((), n, *r["lin_vel_y"])
         new = commands.clone()
         new[1] = torch.where(mask, vy, commands[1])
         if cfg.heading_command:
-            h = self._uniform((n,), *r["heading"])
+            h = self._uniform_envs((), n, *r["heading"])
             new[3] = torch.where(mask, h, commands[3])
         else:
-            w = self._uniform((n,), *r["ang_vel_yaw"])
+            w = self._uniform_envs((), n, *r["ang_vel_yaw"])
             new[2] = torch.where(mask, w, commands[2])
         return new, vx
 
@@ -719,7 +770,7 @@ class LeggedEnv:
         if cfg.domain_rand.push_robots and \
                 common_step % self.push_interval == 0:
             mx = cfg.domain_rand.max_push_vel_xy
-            push_xy = self._uniform((2, n), -mx, mx)
+            push_xy = self._uniform_envs((2,), n, -mx, mx)
             lin_w = torch.cat([push_xy, physics.world_lin_vel()[2:]], dim=0)
             v_b = quat_ops.rotate_inverse(physics.quat, lin_w)
             physics = dataclasses.replace(
@@ -786,9 +837,8 @@ class LeggedEnv:
                          * self.max_episode_length_s * 0.5) & ~move_up
             new_lvl = (terrain_level + move_up.to(torch.int32)
                        - move_down.to(torch.int32))
-            rand_lvl = torch.randint(0, self.max_terrain_level, (n,),
-                                     generator=self.generator, device=dev,
-                                     dtype=torch.int32)
+            rand_lvl = self._randint_envs(self.max_terrain_level, n,
+                                          dtype=torch.int32)
             new_lvl = torch.where(new_lvl >= self.max_terrain_level,
                                   rand_lvl, torch.clamp_min(new_lvl, 0))
             terrain_level = torch.where(done, new_lvl, terrain_level)
@@ -796,16 +846,27 @@ class LeggedEnv:
                 terrain_level.to(torch.int64), self._terrain_types].T
             env_origin = torch.where(done[None, :], looked_up, env_origin)
 
+        # the envs that finished this step: their count, summed episode
+        # lengths and reward sums, and the summed terrain levels; over
+        # every rank's envs when the env axis is split
+        names = list(episode_sums)
+        stats = torch.stack(
+            [torch.sum(donef),
+             torch.sum(episode_length * done).to(self.dtype),
+             torch.sum(terrain_level.to(self.dtype))]
+            + [torch.sum(episode_sums[name] * donef) for name in names])
+        stats = all_sum(stats, self.mesh)
+        count = stats[0]
+        finished = dict(zip(names, stats[3:]))
+
         # command curriculum (:465-474): every max_episode_length common
         # steps, gated on the mean tracking reward of finishing envs
         lin_vel_x_range = state.lin_vel_x_range
         if cfg.commands.curriculum and "tracking_lin_vel" in \
                 self.reward_scales and \
                 common_step % self.max_episode_length == 0:
-            count = torch.sum(donef)
-            mean_track = torch.sum(
-                episode_sums["tracking_lin_vel"] * donef) / torch.clamp_min(
-                    count, 1.0)
+            mean_track = finished["tracking_lin_vel"] / torch.clamp_min(
+                count, 1.0)
             crit = (mean_track / self.max_episode_length
                     > 0.8 * self.reward_scales["tracking_lin_vel"])
             fire = (count > 0) & crit
@@ -847,15 +908,14 @@ class LeggedEnv:
             pr0, pc0 = state.patch_r0, state.patch_c0
 
         feet_air_time = feet_air_time * (~done)[None, :]
-        ep_len_sum = torch.sum(episode_length * done)
         episode_length = torch.where(done, 0, episode_length)
         # actuator recurrent state zeroed per reset env (anymal.py:56-60)
         actuator_state = {k: v * (~done).to(v.dtype)
                           for k, v in actuator_state.items()}
 
         # episode logging sums over envs that finished this step
-        ep_out = {name: torch.sum(episode_sums[name] * donef)
-                  / self.max_episode_length_s for name in episode_sums}
+        ep_out = {name: finished[name] / self.max_episode_length_s
+                  for name in names}
         episode_sums = {name: s * (1.0 - donef)
                         for name, s in episode_sums.items()}
 
@@ -895,9 +955,9 @@ class LeggedEnv:
             contact_ws=contact_ws, actuator_state=actuator_state)
         tr = Transition(
             obs=obs.T, reward=reward, done=done, time_out=time_out,
-            episode_sums=ep_out, episode_count=torch.sum(donef),
-            episode_length_sum=ep_len_sum.to(self.dtype),
-            terrain_level_mean=torch.mean(terrain_level.to(self.dtype)),
+            episode_sums=ep_out, episode_count=count,
+            episode_length_sum=stats[1],
+            terrain_level_mean=stats[2] / self._drawn(n),
             max_command_x=lin_vel_x_range[1],
             torques=torques,
             feet_contact_z=(contact_f[2, self._feet] if len(self.feet_idx)
@@ -1047,9 +1107,9 @@ class LeggedEnv:
         clean = torch.cat(parts, dim=0)                  # (obs_dim, N)
         obs = clean
         if self.cfg.noise.add_noise:
-            noise = (2.0 * torch.rand(obs.shape, generator=self.generator,
-                                      dtype=self.dtype, device=self.device)
-                     - 1.0) * self._noise_vec
+            u = self._uniform_envs((obs.shape[0],), obs.shape[1], 0.0,
+                                   1.0)
+            noise = (2.0 * u - 1.0) * self._noise_vec
             obs = obs + noise
         return obs, clean
 

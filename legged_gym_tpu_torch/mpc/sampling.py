@@ -22,6 +22,14 @@ orientation shaping, termination contact — legged_robot.py:857-966
 semantics) so PPO and MPC optimize the same objective. Random draws come
 from a ``torch.Generator``; ``plan(noise=)`` takes the standard-normal
 draws instead (the parity tests replay the JAX package's).
+
+Split over ranks (``mesh``, parallel/sharding.py), each rank rolls out
+K / world candidates: the draws are taken for all K and cut to the rank's;
+the (K,) costs are gathered; MPPI's softmax weights come from the global
+costs and the weighted sequence is summed over ranks; CEM's top-k over the
+global costs is the same on every rank, and the elites' mean and
+population std are summed over ranks in two passes. The plan and the best
+cost are replicated.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import dataclasses
 import torch
 
 from legged_gym_tpu_torch.ops import quat as quat_ops
+from legged_gym_tpu_torch.parallel.sharding import (EnvMesh, all_sum,
+                                                    shard_env_state)
 from legged_gym_tpu_torch.physics.state import PhysicsState
 
 
@@ -65,17 +75,23 @@ class SamplingMPC:
 
     def __init__(self, env, cfg: MPCConfig = MPCConfig(), method="mppi",
                  mesh=None):
-        """``mesh``: the JAX package shards the K axis over a device mesh;
-        that is not ported (one card)."""
+        """``mesh``: an EnvMesh (a 1-D split over ranks) to roll out
+        ``cfg.num_samples / world`` candidates on each rank;
+        ``num_samples`` must divide by the world size."""
         if mesh is not None:
-            raise NotImplementedError(
-                "MPC over a device mesh is not ported (ROADMAP.md Queue 1, "
-                "multi-device)")
+            if not isinstance(mesh, EnvMesh):
+                raise ValueError(f"mesh: a 1-D env split (EnvMesh), not "
+                                 f"{type(mesh).__name__}")
+            if cfg.num_samples % mesh.world_size:
+                raise ValueError(
+                    f"num_samples {cfg.num_samples} must be divisible by "
+                    f"the world size {mesh.world_size}")
         if method not in ("mppi", "cem"):
             raise ValueError(f"method {method!r}: mppi or cem")
         self.env = env
         self.cfg = cfg
         self.method = method
+        self.mesh = mesh
 
     # ---- rollout cost ----
     def rollout_cost(self, phys0, link_params, friction, commands, seqs,
@@ -189,31 +205,42 @@ class SamplingMPC:
 
         The standard-normal draws come from ``generator`` (on the state's
         device), or from ``noise``: (H, na, K) for MPPI, (cem_iters, H, na,
-        K) for CEM. The tiled inputs are materialized once per solve."""
+        K) for CEM, over all K candidates also when split over ranks. The
+        tiled inputs are materialized once per solve, at this rank's
+        K."""
         cfg = self.cfg
+        mesh = self.mesh
         h, na, k = cfg.horizon, self.env.num_actions, cfg.num_samples
         dev = phys_single.pos.device
         if nominal is None:
             nominal = torch.zeros((h, na), device=dev)
+        # this rank's candidates (all of them unsplit)
+        mine = slice(0, k) if mesh is None else mesh.env_slice(k)
+        k_here = mine.stop - mine.start
 
         def draw(i):
             if noise is not None:
-                return noise if self.method == "mppi" else noise[i]
-            return torch.randn((h, na, k), generator=generator, device=dev)
+                full = noise if self.method == "mppi" else noise[i]
+            else:
+                full = torch.randn((h, na, k), generator=generator,
+                                   device=dev)
+            return shard_env_state(full, mesh, k)
 
         with torch.no_grad():
             phys_k, lp_k, fr_k, cpatch, anc_k = self._tiled(
-                phys_single, link_params, friction, anchors, k)
+                phys_single, link_params, friction, anchors, k_here)
 
             def cost_of(seqs):
-                return self.rollout_cost(phys_k, lp_k, fr_k, commands, seqs,
+                """The (K,) costs of every rank's candidates."""
+                cost = self.rollout_cost(phys_k, lp_k, fr_k, commands, seqs,
                                          contact_patch=cpatch, anchors=anc_k)
+                return cost if mesh is None else mesh.gather_envs(cost, k)
 
             if self.method == "mppi":
                 seqs = nominal[:, :, None] + draw(0) * cfg.noise_std
                 cost = cost_of(seqs)
                 w = torch.softmax(-cost / cfg.temperature, dim=0)   # (K,)
-                new_seq = torch.sum(seqs * w, dim=-1)
+                new_seq = all_sum(torch.sum(seqs * w[mine], dim=-1), mesh)
                 return new_seq, {"cost": torch.sum(cost * w),
                                  "best_cost": cost.min()}
 
@@ -226,10 +253,14 @@ class SamplingMPC:
                 seqs = mean[:, :, None] + std[:, :, None] * draw(i)
                 cost = cost_of(seqs)
                 elite_idx = torch.topk(cost, n_elite, largest=False).indices
-                elite = seqs[:, :, elite_idx]
-                mean = elite.mean(dim=-1)
-                # the population std, as jnp.std
-                std = elite.std(dim=-1, correction=0) + 1e-3
+                # the elites this rank holds; mean, then the population
+                # std (as jnp.std), over all ranks'
+                held = (elite_idx >= mine.start) & (elite_idx < mine.stop)
+                elite = seqs[:, :, elite_idx[held] - mine.start]
+                mean = all_sum(elite.sum(dim=-1), mesh) / n_elite
+                var = all_sum(torch.square(elite - mean[:, :, None])
+                              .sum(dim=-1), mesh) / n_elite
+                std = torch.sqrt(var) + 1e-3
                 elites.append(elite_idx)
             return mean, {"best_cost": cost.min(),
                           "elite_idx": torch.stack(elites)}

@@ -8,8 +8,10 @@ blocks [[A, B], [B^T, C]]; gravity and contacts enter as external
 wrenches. Link-indexed state is carried as per-link Python lists, as in
 the JAX package. Used by the general stacked engine (engine.Engine) and
 the apparent-mass probe; the chain paths run the chain layout
-(chain_step.aba_chain). Revolute joints only. Model constants come from
-kinematics.model_consts (built once per device and dtype).
+(chain_step.aba_chain). Revolute and prismatic joints (motion subspace
+S = [axis; 0] or [0; axis]); levels without a prismatic joint skip the
+blend. Model constants come from kinematics.model_consts (built once per
+device and dtype).
 """
 from __future__ import annotations
 
@@ -17,8 +19,7 @@ import torch
 
 from legged_gym_tpu_torch.ops import lin
 from legged_gym_tpu_torch.ops.quat import cross
-from legged_gym_tpu_torch.physics.kinematics import (_check_revolute,
-                                                     model_consts)
+from legged_gym_tpu_torch.physics.kinematics import model_consts
 
 
 def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
@@ -32,7 +33,6 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
     joint-space diagonal added to D.
     Returns (a_base (6, N) base-frame spatial acceleration, qdd (nq, N)).
     """
-    _check_revolute(model)
     nq, nl = model.nq, model.nl
     dtype, dev = fk.p_w.dtype, fk.p_w.device
     mc = model_consts(model, dtype, dev)
@@ -66,9 +66,17 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
     pA_n = pA_n - n_tot
     pA_f = pA_f - f_tot
 
-    Sqd_ang = mc.axes_all * qd[None]                         # (3, nq, N)
-    c_ang = cross(w[:, 1:], Sqd_ang)                         # (3, nq, N)
-    c_lin = cross(v[:, 1:], Sqd_ang)
+    # velocity-product accelerations c_j = v_child x (S qd)
+    if mc.prism_all is None:
+        Sqd_ang = mc.axes_all * qd[None]                     # (3, nq, N)
+        c_ang = cross(w[:, 1:], Sqd_ang)                     # (3, nq, N)
+        c_lin = cross(v[:, 1:], Sqd_ang)
+    else:
+        pm = mc.prism_all
+        Sqd_ang = mc.axes_all * (1.0 - pm) * qd[None]
+        Sqd_lin = mc.axes_all * pm * qd[None]
+        c_ang = cross(w[:, 1:], Sqd_ang)
+        c_lin = cross(w[:, 1:], Sqd_lin) + cross(v[:, 1:], Sqd_ang)
 
     if implicit_d is not None:
         D_extra = (mc.armature + implicit_d).expand(nq, n)
@@ -89,10 +97,20 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
         pn_l = torch.stack([pA_cols[l][0] for l in li], dim=1)
         pf_l = torch.stack([pA_cols[l][1] for l in li], dim=1)
 
-        Ua = lin.mv(A_l, axis3)
-        Ul = lin.mtv(B_l, axis3)
-        D = torch.sum(axis3 * Ua, dim=0) + D_extra[it]
-        u = tau[it] - torch.sum(axis3 * pn_l, dim=0)
+        # U = I^A S, D = S^T U, u = tau - S^T p^A
+        if lc.pm is None:
+            Ua = lin.mv(A_l, axis3)
+            Ul = lin.mtv(B_l, axis3)
+            D = torch.sum(axis3 * Ua, dim=0) + D_extra[it]
+            u = tau[it] - torch.sum(axis3 * pn_l, dim=0)
+        else:
+            pm = lc.pm[None]                                 # (1, L, 1)
+            Ua = lin.mv(A_l, axis3) * (1 - pm) + lin.mv(B_l, axis3) * pm
+            Ul = lin.mtv(B_l, axis3) * (1 - pm) + lin.mv(C_l, axis3) * pm
+            D = (torch.sum(axis3 * (Ua * (1 - pm) + Ul * pm), dim=0)
+                 + D_extra[it])
+            u = tau[it] - torch.sum(
+                axis3 * (pn_l * (1 - pm) + pf_l * pm), dim=0)
         di = 1.0 / D
         per_level[idx[0]] = (Ua, Ul, di, u)
 
@@ -148,8 +166,13 @@ def aba(model, inertia_params, fk, qd, tau, f_ext_w=None, n_ext_w=None,
         Ua, Ul, di, u = per_level[idx[0]]
         qdd_l = di * (u - (torch.sum(Ua * ap_ang, dim=0)
                            + torch.sum(Ul * ap_lin, dim=0)))
-        al_ang = ap_ang + axis3 * qdd_l[None]
+        if lc.pm is None:
+            al_ang, al_lin = ap_ang + axis3 * qdd_l[None], ap_lin
+        else:
+            pm = lc.pm[None]
+            al_ang = ap_ang + axis3 * (1 - pm) * qdd_l[None]
+            al_lin = ap_lin + axis3 * pm * qdd_l[None]
         for j, (lj, jj) in enumerate(zip(li, idx)):
-            a_cols[lj] = (al_ang[:, j], ap_lin[:, j])
+            a_cols[lj] = (al_ang[:, j], al_lin[:, j])
             qdd[jj] = qdd_l[j]
     return torch.cat([a0_ang, a0_lin], dim=0), torch.stack(qdd)

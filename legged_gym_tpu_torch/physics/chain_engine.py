@@ -38,6 +38,8 @@ class ChainEngine:
         sim = engine.sim
         if engine.fixed_base:
             raise NotChainStructured("fixed base")
+        if not sim.contact.implicit:
+            raise NotChainStructured("explicit contact not supported")
         cm = build_chain_model(model, engine.cp_m_eff, engine.cp_m_eff_t,
                                engine.cp_vmax, k_static=engine.cp_k_static)
         self.engine = engine

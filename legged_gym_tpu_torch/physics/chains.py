@@ -82,8 +82,8 @@ def build_chain_model(model, m_eff, m_eff_t=None, vmax=None,
     friction cap (defaults to m_eff).
 
     Raises NotChainStructured if any non-base link has more than one
-    child, or any prismatic joint is present (not needed for the
-    supported robots; the port's general engine is revolute-only too).
+    child, or any prismatic joint is present (the general engine takes
+    such a model).
     """
     nl = model.nl
     if np.any(model.joint_is_prismatic):

@@ -6,8 +6,9 @@ step (chain_step.contact_force_from_plane and its CUDA kernel); the
 general stacked engine (engine.Engine) calls ``contact_forces`` and
 ``SelfCollision`` here. The anchored tangential law is shared by
 both. Friction combine follows PhysX 'average' mode:
-mu = (mu_env + mu_terrain) / 2. Only the implicit law is ported (the JAX
-package's explicit spring mode is configured by no task).
+mu = (mu_env + mu_terrain) / 2. The explicit spring law
+(``ContactConfig.implicit=False``) runs on the general engine only, as in
+the JAX package; no task configures it.
 
 Every scatter of the JAX package (``.at[...].add``) is a gather here: the
 host builds, once per index list, a padded per-target list of sources in
@@ -32,9 +33,14 @@ from legged_gym_tpu_torch.terrain.heightfield import (patch_sample_bilinear,
 @dataclasses.dataclass(frozen=True)
 class ContactConfig:
     """The implicit (inelastic Baumgarte) impulse law
-    f_n = (m_eff / dt) * max(0, baumgarte * depth / dt - v_n)."""
+    f_n = (m_eff / dt) * max(0, baumgarte * depth / dt - v_n), or with
+    ``implicit`` off the explicit spring-damper
+    f_n = max(stiffness * depth - damping * v_n, 0)."""
+    stiffness: float = 5000.0      # N/m (explicit law only)
+    damping: float = 150.0         # N s/m (explicit law only)
     slip_velocity: float = 0.05    # m/s, Coulomb regularization knee
     terrain_friction: float = 1.0  # static friction of the ground
+    implicit: bool = True
     baumgarte: float = 1.0
     max_pushout_vel: float = 0.5   # [m/s] cap on the Baumgarte pushout
     # Anchored static friction (kernel variant K4): carry per-point
@@ -122,7 +128,9 @@ def contact_forces(model, grid, cfg, cp_pos, cp_vel, friction, dt, m_eff,
                    m_eff_t=None, v_max=None, f_prev=None, patch=None,
                    k_static=None):
     """Per-point world contact forces against the terrain (stacked layout),
-    the implicit impulse law of the JAX package's ``contact_forces``.
+    the JAX package's ``contact_forces``: its implicit impulse law, or
+    with ``cfg.implicit`` off its explicit spring-damper (no apparent-mass
+    blend, no impulse cap on friction; m_eff, v_max and k_static unused).
 
     Args:
       model: RobotModel; grid: TerrainGrid or None (plane z = 0);
@@ -154,22 +162,26 @@ def contact_forces(model, grid, cfg, cp_pos, cp_vel, friction, dt, m_eff,
 
     vx, vy, vz = cp_vel[0], cp_vel[1], cp_vel[2]
     v_n = vx * nx + vy * ny + vz * nz
-    me = m_eff
-    # direction-aware apparent mass: harmonic blend of the normal and the
-    # tangential mass by the normal's tilt
-    if m_eff_t is not None:
-        me = 1.0 / (nz * nz / me + (1.0 - nz * nz) / m_eff_t)
-    v_push = cfg.baumgarte * depth / dt
-    if v_max is None:
-        v_push = torch.clamp_max(v_push, cfg.max_pushout_vel)
+    if cfg.implicit:
+        me = m_eff
+        # direction-aware apparent mass: harmonic blend of the normal and
+        # the tangential mass by the normal's tilt
+        if m_eff_t is not None:
+            me = 1.0 / (nz * nz / me + (1.0 - nz * nz) / m_eff_t)
+        v_push = cfg.baumgarte * depth / dt
+        if v_max is None:
+            v_push = torch.clamp_max(v_push, cfg.max_pushout_vel)
+        else:
+            v_push = torch.minimum(v_push, v_max)
+        fn_raw = (me / dt) * torch.clamp_min(v_push - v_n, 0.0)
+        if k_static is not None:
+            # one-way static-support spring, depth saturated at 15 mm, off
+            # while the point separates faster than 5 cm/s
+            fn_raw = fn_raw + (k_static * torch.clamp_max(depth, 0.015)
+                               * (v_n < 0.05))
     else:
-        v_push = torch.minimum(v_push, v_max)
-    fn_raw = (me / dt) * torch.clamp_min(v_push - v_n, 0.0)
-    if k_static is not None:
-        # one-way static-support spring, depth saturated at 15 mm, off
-        # while the point separates faster than 5 cm/s
-        fn_raw = fn_raw + (k_static * torch.clamp_max(depth, 0.015)
-                           * (v_n < 0.05))
+        fn_raw = torch.clamp_min(cfg.stiffness * depth - cfg.damping * v_n,
+                                 0.0)
     fn_mag = torch.where(active, fn_raw, 0.0)
 
     # tangential velocity and regularized Coulomb friction
@@ -179,9 +191,11 @@ def contact_forces(model, grid, cfg, cp_pos, cp_vel, friction, dt, m_eff,
     vt = torch.sqrt(vtx * vtx + vty * vty + vtz * vtz)
     mu = 0.5 * (friction[None, :] + cfg.terrain_friction)
     ft_over_vt = mu * fn_mag / (vt + cfg.slip_velocity)
-    # impulse cap: one substep can at most stop the slip (tangential mass)
-    met = me if m_eff_t is None else m_eff_t
-    ft_over_vt = torch.minimum(ft_over_vt, met / dt)
+    met = m_eff if m_eff_t is None else m_eff_t
+    if cfg.implicit:
+        # impulse cap: one substep can at most stop the slip (tangential
+        # mass)
+        ft_over_vt = torch.minimum(ft_over_vt, met / dt)
 
     if cfg.warm_start and f_prev is not None:
         f, ax = anchored_tangential(

@@ -5,8 +5,9 @@ Levels are precomputed on the host from the parent table
 (``tree_levels``); within a level all joints are independent. Used by the
 general stacked engine (engine.Engine), the apparent-mass probe and the
 spawn depenetration of the env; the chain paths run the chain layout
-instead (chain_step.py). Revolute joints only: the port's robots have no
-prismatic joint.
+instead (chain_step.py). Revolute and prismatic joints: a prismatic joint
+keeps its fixed rotation and translates its child along the axis by q
+(no shipped robot has one; levels without one skip the blend).
 
 The model's constants are built once per (device, dtype) by
 ``model_consts``: on the card each rebuild from numpy would be a
@@ -56,6 +57,7 @@ class LevelConsts:
     pj: torch.Tensor      # (3, L, 1) joint offsets in the parent frame
     axis: torch.Tensor    # (3, L, 1) joint axes, child frame
     ax: tuple             # x, y, z components of the axes, (L, 1) each
+    pm: object            # (L, 1) 1.0 for prismatic joints; None: none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +65,7 @@ class ModelConsts:
     """A RobotModel's constants as tensors on one device and dtype."""
     levels: tuple                 # LevelConsts, root first
     axes_all: torch.Tensor        # (3, nq, 1) joint axes
+    prism_all: object             # (1, nq, 1) prismatic mask; None: none
     armature: torch.Tensor        # (nq, 1)
     cp_link: torch.Tensor         # (P,) long: owning link per point
     cp_off: torch.Tensor          # (3, P, 1) point offsets, link frame
@@ -102,6 +105,7 @@ def model_consts(model, dtype, device) -> ModelConsts:
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
+    prism = np.asarray(model.joint_is_prismatic, bool)
     levels = []
     for idx in tree_levels(model):
         ax = t(model.joint_axis[idx])                        # (L, 3)
@@ -110,10 +114,12 @@ def model_consts(model, dtype, device) -> ModelConsts:
             Rj=t(model.joint_rot[idx]).permute(1, 2, 0)[..., None],
             pj=t(model.joint_pos[idx].T)[:, :, None],
             axis=t(model.joint_axis[idx].T)[:, :, None],
-            ax=(ax[:, 0:1], ax[:, 1:2], ax[:, 2:3])))
+            ax=(ax[:, 0:1], ax[:, 1:2], ax[:, 2:3]),
+            pm=t(prism[idx])[:, None] if prism[idx].any() else None))
     c = ModelConsts(
         levels=tuple(levels),
         axes_all=t(model.joint_axis.T)[:, :, None],
+        prism_all=t(prism)[None, :, None] if prism.any() else None,
         armature=t(model.armature)[:, None],
         cp_link=t(model.cp_link, torch.long),
         cp_off=t(model.cp_pos.T)[:, :, None],
@@ -130,11 +136,6 @@ def model_consts(model, dtype, device) -> ModelConsts:
 def _forget(model_id):
     for k in [k for k in _CONSTS if k[0] == model_id]:
         del _CONSTS[k]
-
-
-def _check_revolute(model):
-    if np.any(model.joint_is_prismatic):
-        raise NotImplementedError("prismatic joints are not ported")
 
 
 def _axis_rotations(ax, angles):
@@ -154,7 +155,6 @@ def _axis_rotations(ax, angles):
 
 def forward_kinematics(model, state) -> FK:
     """model: RobotModel (host constants), state: PhysicsState."""
-    _check_revolute(model)
     n = state.pos.shape[-1]
     mc = model_consts(model, state.pos.dtype, state.pos.device)
     nl, nq = model.nl, model.nq
@@ -174,16 +174,29 @@ def forward_kinematics(model, state) -> FK:
         idx, li, pi = lc.idx, lc.li, lc.pi
         q_l = state.q[lc.idx_t]                             # (L, N)
         qd_l = state.qd[lc.idx_t]
-        R = lin.mm(lc.Rj, _axis_rotations(lc.ax, q_l))
-        p = lc.pj.expand(3, len(idx), n)
+        R_rot = _axis_rotations(lc.ax, q_l)
+        if lc.pm is None:
+            p = lc.pj.expand(3, len(idx), n)
+            s_ang, s_lin = lc.axis, None
+        else:
+            # mixed level: prismatic joints keep the identity rotation and
+            # translate along the axis
+            pm = lc.pm
+            R_rot = R_rot * (1 - pm) + lin.eye(R_rot.shape[2:], R_rot.dtype,
+                                               R_rot.device) * pm
+            p = lc.pj + lc.axis * (q_l * pm)[None]
+            s_ang, s_lin = lc.axis * (1 - pm)[None], lc.axis * pm[None]
+        R = lin.mm(lc.Rj, R_rot)
         Rp = torch.stack([R_w[j] for j in pi], dim=2)       # (3, 3, L, N)
         pp = torch.stack([p_w[j] for j in pi], dim=1)       # (3, L, N)
         wp = torch.stack([v_ang[j] for j in pi], dim=1)
         vp = torch.stack([v_lin[j] for j in pi], dim=1)
         Rw_l = lin.mm(Rp, R)
         pw_l = pp + lin.mv(Rp, p)
-        w_l = lin.mtv(R, wp) + lc.axis * qd_l[None]
+        w_l = lin.mtv(R, wp) + s_ang * qd_l[None]
         v_l = lin.mtv(R, vp + quat_ops.cross(wp, p))
+        if s_lin is not None:
+            v_l = v_l + s_lin * qd_l[None]
         for j, (lk, jk) in enumerate(zip(li, idx)):
             R_w[lk], p_w[lk] = Rw_l[:, :, j], pw_l[:, j]
             v_ang[lk], v_lin[lk] = w_l[:, j], v_l[:, j]

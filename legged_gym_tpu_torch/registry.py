@@ -31,18 +31,23 @@ def task_names():
     return list(_REGISTRY)
 
 
-def make_env(name=None, args=None, cfg=None, seed=None, device="cuda"):
+def make_env(name=None, args=None, cfg=None, seed=None, device="cuda",
+             mesh=None):
     """Build (LeggedEnv, env_cfg) on ``device`` (the card unless the caller
     asks for the CPU). CLI args override config fields (reference
     make_env, task_registry.py:67-104). Keeps float32 matmuls in full
-    precision (no TF32)."""
+    precision (no TF32). ``mesh``: an EnvMesh (parallel/sharding.py); the
+    env then simulates this rank's share of the envs on ``mesh.device``."""
     if cfg is None:
         cfg, _ = get_cfgs(name)
     if args is not None:
         from legged_gym_tpu_torch.utils.helpers import update_cfg_from_args
         cfg, _ = update_cfg_from_args(cfg, None, args)
     set_full_fp32()
-    env = LeggedEnv(cfg, seed=0 if seed is None else seed, device=device)
+    if mesh is not None:
+        device = mesh.device
+    env = LeggedEnv(cfg, seed=0 if seed is None else seed, device=device,
+                    mesh=mesh)
     return env, cfg
 
 
@@ -50,7 +55,9 @@ def make_runner(env, name=None, args=None, train_cfg=None,
                 log_root="default"):
     """Build (PPORunner, train_cfg) with the reference's run-dir layout
     logs/<experiment_name>/<date>_<run_name> (task_registry.py:106-160).
-    The runner trains on the env's device."""
+    The runner trains on the env's device; with the env split over ranks
+    (its ``mesh``) on every rank of the split, where only rank 0 writes
+    the run dir."""
     from datetime import datetime
 
     from legged_gym_tpu_torch.rl.runner import PPORunner
@@ -66,7 +73,8 @@ def make_runner(env, name=None, args=None, train_cfg=None,
     if log_root == "default":
         log_root = os.path.join(helpers.LOG_ROOT,
                                 train_cfg.runner.experiment_name)
-    if log_root is None:
+    mesh = getattr(env, "mesh", None)
+    if log_root is None or (mesh is not None and mesh.rank != 0):
         log_dir = None
     else:
         stamp = datetime.now().strftime("%b%d_%H-%M-%S")

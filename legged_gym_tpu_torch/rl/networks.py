@@ -31,6 +31,19 @@ _ACTIVATIONS = {
 }
 
 
+def _orthogonal_(weight, gain, generator):
+    """``nn.init.orthogonal_`` on one CPU thread: its QR gives other last
+    bits at other thread counts, so without the pin one seed would give
+    a single process and a one-thread rank (torchrun's default) different
+    weights."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        nn.init.orthogonal_(weight, gain, generator=generator)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _mlp(dims, activation, generator=None):
     """dims = [in, h1, ..., out]. Orthogonal init, sqrt(2) gain on hidden
     layers, 1.0 on the output layer, zero biases."""
@@ -39,7 +52,7 @@ def _mlp(dims, activation, generator=None):
         lin = nn.Linear(dims[i], dims[i + 1])
         gain = 1.0 if i == len(dims) - 2 else math.sqrt(2.0)
         with torch.no_grad():
-            nn.init.orthogonal_(lin.weight, gain, generator=generator)
+            _orthogonal_(lin.weight, gain, generator)
             lin.bias.zero_()
         layers.append(lin)
         if i < len(dims) - 2:

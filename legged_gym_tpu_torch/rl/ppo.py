@@ -26,6 +26,17 @@ legged_robot_config.py:212-247). Semantics mirrored:
   over the whole T-step window from the window-start carry, zeroing at
   dones: BPTT through the window, as the JAX package does it.
 
+Split over ranks (the env's ``mesh``, parallel/sharding.py), each rank
+rolls out its envs and the update gives the unsharded one's numbers to
+reduction order: the action noise is drawn for the global envs and cut to
+the rank's; advantages are normalized by the global mean and population
+std; the minibatches are the unsharded run's global index sets (one
+permutation, the same on every rank), of which each rank takes the rows it
+holds; the loss terms are local sums over the global minibatch size, and
+the gradients, the loss terms and the KL are summed over ranks before the
+clip, the adaptive learning rate and the Adam step, so parameters, moments
+and the learning rate stay replicated; the metrics are global.
+
 PyTorch idiom: the policy is an ``nn.Module`` updated in place by
 autograd; the rollout runs under ``torch.no_grad()`` (not inference mode:
 its tensors feed the update); the learning rate and every metric stay on
@@ -40,6 +51,7 @@ import time
 import numpy as np
 import torch
 
+from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_batch
 from legged_gym_tpu_torch.rl import networks as nets
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -161,11 +173,13 @@ def compute_gae(reward, value, not_done, last_value, gamma, lam):
     return adv
 
 
-def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False):
+def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None):
     """(loss, (surrogate, value_loss, kl)) of one minibatch. Recurrent: the
     minibatch is time-major (T, N_mb, ...) with the window-start carries
     ``mem_a0`` / ``mem_c0``, and the LSTMs run over the window from them,
-    zeroed where an episode ended."""
+    zeroed where an episode ended. ``size``: the count the mean-reduced
+    terms' sums divide by (default: the minibatch's own samples); a rank's
+    part of a split minibatch divides by the whole minibatch's."""
     cobs = mb["cobs"] if asym else mb["obs"]
     if recurrent:
         ma, mc = mb["mem_a0"], mb["mem_c0"]
@@ -177,32 +191,35 @@ def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False):
             ma, mc = ma * keep, mc * keep
             means.append(mean_t)
             values.append(value_t)
-        mean, value = torch.stack(means), torch.stack(values)
+        act_mean, value = torch.stack(means), torch.stack(values)
     else:
-        mean = nets.actor_mean(model, mb["obs"])
+        act_mean = nets.actor_mean(model, mb["obs"])
         value = nets.critic_value(model, cobs)
-    std = model.std.expand_as(mean)
-    logp = nets.gaussian_log_prob(mb["action"], mean, std)
+    std = model.std.expand_as(act_mean)
+    logp = nets.gaussian_log_prob(mb["action"], act_mean, std)
     entropy = nets.gaussian_entropy(std)
 
     ratio = torch.exp(logp - mb["logp"])
     s1 = -mb["adv"] * ratio
     s2 = -mb["adv"] * torch.clamp(ratio, 1.0 - alg_cfg.clip_param,
                                   1.0 + alg_cfg.clip_param)
-    surrogate = torch.maximum(s1, s2).mean()
+    def mean(x):
+        return x.sum() / (x.numel() if size is None else size)
+
+    surrogate = mean(torch.maximum(s1, s2))
 
     if alg_cfg.use_clipped_value_loss:
         v_clip = mb["value"] + torch.clamp(
             value - mb["value"], -alg_cfg.clip_param, alg_cfg.clip_param)
-        v_loss = torch.maximum(torch.square(value - mb["returns"]),
-                               torch.square(v_clip - mb["returns"])).mean()
+        v_loss = mean(torch.maximum(torch.square(value - mb["returns"]),
+                                    torch.square(v_clip - mb["returns"])))
     else:
-        v_loss = torch.square(value - mb["returns"]).mean()
+        v_loss = mean(torch.square(value - mb["returns"]))
 
     loss = (surrogate + alg_cfg.value_loss_coef * v_loss
-            - alg_cfg.entropy_coef * entropy.mean())
+            - alg_cfg.entropy_coef * mean(entropy))
     with torch.no_grad():
-        kl = nets.gaussian_kl(mb["mean"], mb["std"], mean, std).mean()
+        kl = mean(nets.gaussian_kl(mb["mean"], mb["std"], act_mean, std))
     return loss, (surrogate.detach(), v_loss.detach(), kl)
 
 
@@ -220,6 +237,16 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     policy) replace the generators' draws; the parity tests replay the JAX
     package's with them.
 
+    With the env split over ranks (``env.mesh``), ``noise`` and ``perm``
+    are the global ones (num_steps, N_global, num_actions) and a
+    permutation of num_steps * N_global (N_global for a recurrent policy);
+    each rank takes its part.
+
+    The two halves are ``learn_iteration.rollout(train_state, env_state,
+    obs, noise=None)`` -> (env_state, obs, batch) and
+    ``learn_iteration.update(train_state, batch, perm=None)`` -> metrics;
+    ``batch_envs`` cuts a rollout's batch to a range of envs.
+
     Set ``learn_iteration.profile = True`` to synchronize at the phase
     boundaries and append {"rollout_s", "update_s"} (host clock) of each
     iteration to ``learn_iteration.times``.
@@ -232,14 +259,56 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     recurrent = nets.is_recurrent(policy_cfg)
     # asymmetric critic (rsl_rl's critic_obs routing, on_policy_runner.py)
     asym = getattr(env, "num_privileged_obs", None) is not None
+    mesh = getattr(env, "mesh", None)
+    world = 1 if mesh is None else mesh.world_size
+
+    def step_noise(noise, t, ts, ref):
+        """The standard-normal action draw of rollout step ``t``, drawn or
+        given for the global envs and cut to this rank's (``ref``: this
+        rank's observations)."""
+        full = noise[t] if noise is not None else torch.randn(
+            (ref.shape[0] * world, env.num_actions),
+            generator=ts.noise_generator, dtype=ref.dtype, device=ref.device)
+        return shard_batch(full, mesh)
+
+    def rows_held(idx, n_env):
+        """The local rows of the global minibatch rows ``idx`` that this
+        rank holds: global row t * N_global + n (an env index n for a
+        recurrent policy) is local row t * n_env + n - start."""
+        if mesh is None:
+            return idx
+        n_glob = n_env * world
+        start = mesh.env_slice(n_glob).start
+        env_idx = idx % n_glob
+        held = (env_idx >= start) & (env_idx < start + n_env)
+        return ((idx // n_glob) * n_env + env_idx - start)[held]
+
+    def summed(grads, scalars):
+        """Gradients and 0-d terms summed over the ranks, one
+        all-reduce."""
+        if mesh is None:
+            return grads, scalars
+        flat = mesh.all_sum(torch.cat([g.reshape(-1) for g in grads]
+                                      + [torch.stack(scalars)]))
+        parts = torch.split(flat, [g.numel() for g in grads]
+                            + [len(scalars)])
+        return ([p.view_as(g) for p, g in zip(parts, grads)],
+                parts[-1].unbind())
 
     def clock(device):
         if learn_iteration.profile and device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    def learn_iteration(ts: TrainState, env_state, obs, noise=None,
-                        perm=None):
+    def rollout(ts: TrainState, env_state, obs, noise=None):
+        """``num_steps`` env steps under the current policy, no update.
+        Returns (env_state, obs, batch): ``batch`` holds the per-step
+        tensors (T, N, ...) (obs, [cobs,] action, logp, mean, std, value,
+        reward, done, time_out), ``last_value`` (N,), the recurrent
+        window-start carries ``memory`` {"a", "c"} (N, ...) and the env's
+        episode statistics, which are global: ``ep_count`` and
+        ``ep_len_sum`` (T,), ``ep_sums`` {name: (T,)}, and the last step's
+        ``terrain_level`` and ``max_command_x``."""
         model = ts.model
         memory = None
         if recurrent:
@@ -247,15 +316,11 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         # the window-start carries: the update re-runs each minibatch's
         # window from them
         mem_start = memory
-        device = (obs[0] if asym else obs).device
-        t0 = clock(device)
-
-        # ---- rollout ----
         steps = []
         with torch.no_grad():
             for t in range(num_steps):
                 aobs, cobs = obs if asym else (obs, obs)
-                eps = None if noise is None else noise[t]
+                eps = step_noise(noise, t, ts, aobs)
                 if recurrent:
                     mean, mem_a = nets.actor_mean_rnn(model, aobs,
                                                       memory["a"])
@@ -274,9 +339,7 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                     mean=mean, std=std, value=value, reward=tr.reward,
                     done=tr.done, time_out=tr.time_out,
                     ep_sums=tr.episode_sums, ep_count=tr.episode_count,
-                    ep_len_sum=tr.episode_length_sum,
-                    terrain_level=tr.terrain_level_mean,
-                    max_command_x=tr.max_command_x))
+                    ep_len_sum=tr.episode_length_sum))
                 if recurrent:
                     # rsl_rl resets the hidden states of finished envs
                     keep = (~tr.done).to(mem_a.dtype)[:, None, None, None]
@@ -290,23 +353,43 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                      "reward", "done", "time_out", "ep_count", "ep_len_sum"]
             batch = {name: stacked(name)
                      for name in names + ["cobs"] * asym}
-
-            # ---- timeout bootstrap + GAE ----
+            batch["ep_sums"] = {name: torch.stack([s["ep_sums"][name]
+                                                   for s in steps])
+                                for name in steps[-1]["ep_sums"]}
+            batch["terrain_level"] = tr.terrain_level_mean
+            batch["max_command_x"] = tr.max_command_x
             last_cobs = obs[1] if asym else obs
             if recurrent:
-                last_value, _ = nets.critic_value_rnn(model, last_cobs,
-                                                      memory["c"])
+                batch["last_value"], _ = nets.critic_value_rnn(
+                    model, last_cobs, memory["c"])
+                batch["memory"] = mem_start
+                obs = (obs, memory)
             else:
-                last_value = nets.critic_value(model, last_cobs)
+                batch["last_value"] = nets.critic_value(model, last_cobs)
+        return env_state, obs, batch
+
+    def update(ts: TrainState, batch, perm=None):
+        """GAE and the PPO update (epochs x minibatches) on a rollout's
+        ``batch``, the train state updated in place. Returns the metrics
+        (0-d tensors on the device)."""
+        model = ts.model
+        device = batch["reward"].device
+        mem_start = batch.get("memory")
+        with torch.no_grad():
+            # ---- timeout bootstrap + GAE ----
             dtype = batch["reward"].dtype
             reward = bootstrap_timeouts(batch["reward"], batch["value"],
                                         batch["time_out"], gamma)
             not_done = 1.0 - batch["done"].to(dtype)
             advantages = compute_gae(reward, batch["value"], not_done,
-                                     last_value, gamma, lam)
+                                     batch["last_value"], gamma, lam)
             returns = advantages + batch["value"]
-            adv_norm = ((advantages - advantages.mean())
-                        / (advantages.std(unbiased=False) + 1e-8))
+            # the global mean, then the global population std
+            count = advantages.numel() * world
+            adv_mean = all_sum(advantages.sum(), mesh) / count
+            adv_var = all_sum(torch.square(advantages - adv_mean).sum(),
+                              mesh) / count
+            adv_norm = (advantages - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
 
             # ---- minibatching ----
             # feed-forward: flatten (T, N, ...) and permute once; recurrent:
@@ -318,19 +401,23 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                     "returns": returns, "adv": adv_norm}
             if asym:
                 flat["cobs"] = batch["cobs"]
+            n_all = n_env * world
             if recurrent:
                 flat["done"] = batch["done"].to(dtype)
-                n_rows = n_env
+                n_rows = n_all
             else:
-                n_rows = t_len * n_env
-                flat = {k: v.reshape((n_rows,) + v.shape[2:])
+                n_rows = t_len * n_all
+                flat = {k: v.reshape((t_len * n_env,) + v.shape[2:])
                         for k, v in flat.items()}
             mb_size = n_rows // n_mb
             if perm is None:
                 perm = torch.randperm(n_rows, generator=ts.perm_generator,
                                       device=device)
-            mb_idx = perm[: mb_size * n_mb].reshape(n_mb, mb_size)
-        t1 = clock(device)
+            # each rank's rows of the global minibatches; the loss
+            # divides by the global minibatch's samples
+            mb_idx = [rows_held(idx, n_env) for idx in
+                      perm[: mb_size * n_mb].reshape(n_mb, mb_size)]
+            size = mb_size * (t_len if recurrent else 1)
 
         # ---- update: epochs reuse the permutation ----
         params = ts.params
@@ -345,9 +432,11 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                 else:
                     mb = {k: v[idx] for k, v in flat.items()}
                 loss, (s_loss, v_loss, kl) = ppo_loss(model, mb, alg_cfg,
-                                                      recurrent, asym)
+                                                      recurrent, asym, size)
                 grads = list(torch.autograd.grad(loss, params))
                 with torch.no_grad():
+                    grads, (loss, s_loss, v_loss, kl) = summed(
+                        grads, [loss.detach(), s_loss, v_loss, kl])
                     if adaptive:
                         lr = torch.where(kl > alg_cfg.desired_kl * 2.0,
                                          torch.clamp_min(lr * INV_1_5,
@@ -365,10 +454,12 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         with torch.no_grad():
             stats = torch.stack(stats)                     # (n_ep*n_mb, 4)
             mean_stats = stats.mean(dim=0)
+            # the env's episode statistics are global already
             ep_count = batch["ep_count"].sum()
+            mean_reward = all_sum(batch["reward"].sum(), mesh) / (
+                t_len * n_all)
             denom = torch.clamp_min(ep_count, 1.0)
-            last = steps[-1]
-            metrics = {
+            return {
                 "loss": mean_stats[0],
                 "surrogate_loss": mean_stats[1],
                 "value_loss": mean_stats[2],
@@ -376,24 +467,50 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                 "kl_max": stats[:, 3].max(),
                 "noise_std": model.std.detach().mean(),
                 "lr": lr,
-                "mean_step_reward": batch["reward"].mean(),
+                "mean_step_reward": mean_reward,
                 "episode_count": ep_count,
                 "mean_episode_length": batch["ep_len_sum"].sum() / denom,
-                "terrain_level": last["terrain_level"],
-                "max_command_x": last["max_command_x"],
-                "episode": {
-                    name: torch.stack([s["ep_sums"][name]
-                                       for s in steps]).sum() / denom
-                    for name in last["ep_sums"]},
+                "terrain_level": batch["terrain_level"],
+                "max_command_x": batch["max_command_x"],
+                "episode": {name: v.sum() / denom
+                            for name, v in batch["ep_sums"].items()},
             }
+
+    def learn_iteration(ts: TrainState, env_state, obs, noise=None,
+                        perm=None):
+        device = obs
+        while isinstance(device, tuple):        # the carried pack
+            device = device[0]
+        device = device.device
+        t0 = clock(device)
+        env_state, obs, batch = rollout(ts, env_state, obs, noise)
+        t1 = clock(device)
+        metrics = update(ts, batch, perm)
         if learn_iteration.profile:
             t2 = clock(device)
             learn_iteration.times.append({"rollout_s": t1 - t0,
                                           "update_s": t2 - t1})
-        if recurrent:
-            obs = (obs, memory)
         return ts, env_state, obs, metrics
 
+    learn_iteration.rollout = rollout
+    learn_iteration.update = update
     learn_iteration.profile = False
     learn_iteration.times = []
     return learn_iteration
+
+
+def batch_envs(batch, envs):
+    """The envs ``envs`` (a slice) of a rollout batch: the per-step
+    tensors along their env axis (1), ``last_value`` and the carries along
+    theirs (0); the global episode statistics as they are."""
+    per_env = ("obs", "cobs", "action", "logp", "mean", "std", "value",
+               "reward", "done", "time_out")
+    out = dict(batch)
+    for k in per_env:
+        if k in batch:
+            out[k] = batch[k][:, envs].contiguous()
+    out["last_value"] = batch["last_value"][envs].contiguous()
+    if batch.get("memory") is not None:
+        out["memory"] = {k: v[envs].contiguous()
+                         for k, v in batch["memory"].items()}
+    return out

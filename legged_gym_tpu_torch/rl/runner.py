@@ -6,6 +6,12 @@ orchestrates: iteration loop, steps/s metering, checkpoint save / load
 (``torch.save``), scalar logging (plain JSONL in the JAX package's layout,
 plus tensorboardX if it is installed), the inference policy and the policy
 export.
+
+Split over ranks (``mesh``, the env's): every rank runs this loop on its
+envs; the weights start from rank 0's, the episode-length randomization
+is drawn for the global envs and cut, only rank 0 writes metrics, logs and
+checkpoints, every rank reads a checkpoint, and steps/s counts the global
+env-steps.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from legged_gym_tpu_torch.parallel.sharding import replicate, shard_batch
 from legged_gym_tpu_torch.rl import networks as nets
 from legged_gym_tpu_torch.rl.ppo import init_train_state, make_learn_fn
 
@@ -56,11 +63,16 @@ def fetch_metrics(metrics):
 
 class PPORunner:
     def __init__(self, env, train_cfg, log_dir=None, seed=None):
-        """Runs on ``env.device``. Multi-device sharding (the JAX
-        package's ``mesh=``) is not ported."""
+        """Runs on ``env.device``. With the env split over ranks (its
+        ``mesh``, parallel/sharding.py) it trains on every rank of the
+        split, and ``log_dir`` is used by rank 0 only."""
+        mesh = getattr(env, "mesh", None)
         self.env = env
         self.cfg = train_cfg
-        self.log_dir = log_dir
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.rank == 0
+        self.log_dir = log_dir if self.chief else None
+        log_dir = self.log_dir
         self.device = torch.device(env.device)
         seed = train_cfg.seed if seed is None else seed
 
@@ -77,6 +89,10 @@ class PPORunner:
             train_cfg.algorithm,
             critic_obs_dim=getattr(env, "num_privileged_obs", None),
             device=self.device)
+        if mesh is not None:
+            # equal already (one seed); broadcast so they start equal
+            # whatever the ranks' initialization did
+            replicate(self.train_state.model, mesh)
         self.reset_generator = torch.Generator(
             device=self.device).manual_seed(seed + 3)
         self.learn_fn = make_learn_fn(
@@ -117,17 +133,21 @@ class PPORunner:
             if init_at_random_ep_len:
                 # reference train.py:43 randomizes initial episode
                 # progress to decorrelate resets
-                lengths = torch.randint(
-                    0, self.env.max_episode_length, (self.env.num_envs,),
+                # (drawn for the global envs, this rank's kept)
+                n_all = getattr(self.env, "num_envs_global",
+                                self.env.num_envs)
+                lengths = shard_batch(torch.randint(
+                    0, self.env.max_episode_length, (n_all,),
                     generator=self.reset_generator, device=self.device,
-                    dtype=torch.int32)
+                    dtype=torch.int32), self.mesh)
                 self.env_state = dataclasses.replace(
                     self.env_state, episode_length=lengths)
 
     def learn(self, num_iterations, init_at_random_ep_len=False):
         self._ensure_env_state(init_at_random_ep_len)
         steps_per_iter = (self.cfg.runner.num_steps_per_env
-                          * self.env.num_envs)
+                          * getattr(self.env, "num_envs_global",
+                                    self.env.num_envs))
 
         # Depth-1 pipelined metrics fetch: iteration i+1 is enqueued
         # BEFORE iteration i's metrics are read (one device-to-host copy
@@ -183,7 +203,7 @@ class PPORunner:
                          metrics["mean_step_reward"], it)
             w.add_scalar("Train/mean_episode_length",
                          metrics.get("mean_episode_length", 0.0), it)
-        if it % 10 == 0:
+        if it % 10 == 0 and self.chief:
             ep = metrics.get("episode", {})
             track = ep.get("tracking_lin_vel", 0.0)
             print(f"it {it:5d} | {metrics['steps_per_s']:.0f} steps/s | "
@@ -197,7 +217,10 @@ class PPORunner:
     def save(self, path):
         """``torch.save`` of (params, Adam moments and count, lr,
         generator states, iteration) — the model_<it>.pt analog
-        (reference save cadence legged_robot_config.py:248)."""
+        (reference save cadence legged_robot_config.py:248). Split over
+        ranks, only rank 0 writes (the state is replicated)."""
+        if not self.chief:
+            return
         ts = self.train_state
         ckpt = {
             "params": ts.model.state_dict(),
@@ -215,6 +238,9 @@ class PPORunner:
         torch.save(ckpt, path)
 
     def load(self, path, load_optimizer=True):
+        """Restore a ``save`` file; split over ranks every rank reads it,
+        so weights, moments, lr, generators and the iteration are equal
+        on all."""
         ckpt = torch.load(path, map_location=self.device,
                           weights_only=True)
         ts = self.train_state

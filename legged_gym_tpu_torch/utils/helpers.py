@@ -84,6 +84,20 @@ def get_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the env and the trainer "
                         "(cuda, cuda:1, cpu)")
+    # several ranks (replaces the reference's dead --horovod)
+    p.add_argument("--shard", action="store_true",
+                   help="split the env axis over the ranks of torchrun "
+                        "(one rank per card: python -m "
+                        "torch.distributed.run --nproc_per_node=<cards> -m "
+                        "legged_gym_tpu_torch.scripts.train --shard ...)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-node process group (torchrun's "
+                        "environment, or the three flags below), then "
+                        "split as --shard")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0 (--multihost)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 

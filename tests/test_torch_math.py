@@ -1,7 +1,9 @@
 """The PyTorch port's math, state, general-tree dynamics and network
 against the JAX package, on the CPU, with random inputs made once by numpy
 and handed to both. Tolerance atol 1e-6 unless stated (float32 both sides,
-same formulas and summation order)."""
+same formulas and summation order). Also the port's profiling utilities
+(utils/profiling.py)."""
+import json
 import os
 import subprocess
 import sys
@@ -61,6 +63,9 @@ def test_package_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'legged_gym_tpu'\n"
         "       or m.startswith('legged_gym_tpu.')]\n"
         "assert not bad, bad\n"
+        "for m in ('parallel', 'parallel.sharding', 'utils.profiling',\n"
+        "          'scripts.bench_scaling'):\n"
+        "    assert 'legged_gym_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(PKG_DIR) + os.pathsep + env.get(
@@ -264,3 +269,53 @@ def test_actor_critic_init():
                                    atol=1e-5)
         assert not l.bias.detach().any()
     assert torch.all(model.std == 1.0)
+
+
+def test_actor_critic_init_is_the_same_at_any_thread_count():
+    """One seed gives the same weights to the bit on one CPU thread (a
+    torchrun rank's default) and on several (a single process)."""
+    threads = torch.get_num_threads()
+    weights = []
+    try:
+        for n in (1, 3):
+            torch.set_num_threads(n)
+            model = networks.ActorCritic.from_cfg(
+                235, 12, PolicyCfg(),
+                generator=torch.Generator().manual_seed(5))
+            weights.append([p.detach().clone()
+                            for p in model.parameters()])
+            assert torch.get_num_threads() == n
+    finally:
+        torch.set_num_threads(threads)
+    assert all(torch.equal(a, b) for a, b in zip(*weights))
+
+
+# ------------------------------------------------------------ profiling
+
+def test_meter_is_an_ema_of_steps_per_second(monkeypatch):
+    """Meter.tick against a hand-computed EMA on a scripted clock."""
+    from legged_gym_tpu_torch.utils import profiling
+
+    clock = iter([10.0, 10.5, 11.5, 11.75])
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
+    m = profiling.Meter(alpha=0.25)
+    assert m.tick(100) is None                  # no interval yet
+    assert m.tick(100) == pytest.approx(200.0)  # 100 steps / 0.5 s
+    # then 100 / 1.0 = 100 and 100 / 0.25 = 400, each blended at 0.25
+    assert m.tick(100) == pytest.approx(0.75 * 200.0 + 0.25 * 100.0)
+    assert m.tick(100) == pytest.approx(0.75 * 175.0 + 0.25 * 400.0)
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """trace() around a few ops on the CPU writes a Chrome trace that
+    names them."""
+    from legged_gym_tpu_torch.utils.profiling import trace
+
+    with trace(str(tmp_path / "tr")) as prof:
+        x = torch.ones(64, 64)
+        (x @ x).sum()
+    files = list((tmp_path / "tr").glob("trace_*.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("aten::mm" in e.get("name", "") for e in events)
+    assert any(e.key == "aten::mm" for e in prof.key_averages())

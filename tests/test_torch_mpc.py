@@ -346,7 +346,9 @@ def test_plain_chain_step_carries_a_gradient(hopper):
 
 
 def test_mesh_and_method_are_checked(hopper):
-    with pytest.raises(NotImplementedError):
+    # a mesh must be a 1-D env split (tests/test_torch_sharding.py holds
+    # the split planners and the world-size check)
+    with pytest.raises(ValueError, match="1-D env split"):
         SamplingMPC(hopper.tenv, MPCConfig(), mesh=object())
     with pytest.raises(ValueError):
         SamplingMPC(hopper.tenv, MPCConfig(), method="ilqr")

@@ -471,9 +471,13 @@ def test_make_runner_run_dir_and_resume(go1_env, tmp_path):
 def test_get_args_flags():
     a = helpers.get_args([])
     assert a.device == "cuda" and a.task == "go1"
-    for flag in ("shard", "multihost", "coordinator_address",
-                 "num_processes", "process_id"):
-        assert not hasattr(a, flag)
+    assert (a.shard, a.multihost, a.coordinator_address, a.num_processes,
+            a.process_id) == (False, False, None, None, None)
+    a = helpers.get_args(["--multihost", "--coordinator_address",
+                          "10.0.0.1:29500", "--num_processes", "2",
+                          "--process_id", "1", "--shard"])
+    assert (a.shard, a.multihost, a.coordinator_address, a.num_processes,
+            a.process_id) == (True, True, "10.0.0.1:29500", 2, 1)
     a = helpers.get_args(["--task", "aliengo", "--num_envs", "64", "--seed",
                           "7", "--max_iterations", "5", "--headless",
                           "--experiment_name", "e", "--run_name", "r",
@@ -505,7 +509,9 @@ def test_train_cli_help_exits_zero():
     r = _run_train(["--help"])
     assert r.returncode == 0, r.stderr[-2000:]
     assert "--task" in r.stdout and "--device" in r.stdout
-    assert "--shard" not in r.stdout
+    for flag in ("--shard", "--multihost", "--coordinator_address",
+                 "--num_processes", "--process_id"):
+        assert flag in r.stdout, flag
 
 
 @pytest.mark.parametrize("task", ["go1", "aliengo"])
