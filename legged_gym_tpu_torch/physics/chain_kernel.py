@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from legged_gym_tpu_torch.physics import chain_step
+from legged_gym_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "chain_step.cu")
@@ -528,23 +529,26 @@ def run_decimation(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat,
     ``cv`` its cached constants); tensors on one CUDA device launch the
     kernel on the current stream (``consts``: the cached const_table() on
     that device), and each launch adds one to
-    ``launches[chain_step.variant(cc, anchored)]``.
+    ``launches[chain_step.variant(cc, anchored)]``. The call, checks aside,
+    is the span ``kernel.chain_step`` (utils/profiling.py).
     """
     if anchors is not None and not cc.warm_start:
         raise ValueError("anchors given but cc.warm_start is off")
-    args = (lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat, vel, q, qd)
-    dev = _one_device(args if anchors is None else args + (anchors,))
-    if dev.type == "cpu":
-        return chain_step.run_decimation_chain(cc, *args, cv=cv,
-                                               anchors=anchors)
-    if dev.type != "cuda":
-        raise ValueError(f"no chain kernel for device {dev}")
-    with torch.cuda.device(dev):
-        lib = launch_library(model_layout(cc.cm), pos.shape[-1],
-                             anchors is not None)
-        out = launch(lib, cc, args, consts, anchors)
-    launches[chain_step.variant(cc, anchored=anchors is not None)] += 1
-    return out
+    with profiling.span("kernel.chain_step"):
+        args = (lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat, vel, q,
+                qd)
+        dev = _one_device(args if anchors is None else args + (anchors,))
+        if dev.type == "cpu":
+            return chain_step.run_decimation_chain(cc, *args, cv=cv,
+                                                   anchors=anchors)
+        if dev.type != "cuda":
+            raise ValueError(f"no chain kernel for device {dev}")
+        with torch.cuda.device(dev):
+            lib = launch_library(model_layout(cc.cm), pos.shape[-1],
+                                 anchors is not None)
+            out = launch(lib, cc, args, consts, anchors)
+        launches[chain_step.variant(cc, anchored=anchors is not None)] += 1
+        return out
 
 
 def run_decimation_host(cc, *args, anchors=None, lanes=DEFAULT_LANES):

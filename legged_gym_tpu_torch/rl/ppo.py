@@ -45,6 +45,7 @@ fetches the metrics once per iteration.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -53,6 +54,7 @@ import torch
 
 from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_batch
 from legged_gym_tpu_torch.rl import networks as nets
+from legged_gym_tpu_torch.utils import profiling
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LR_MIN, LR_MAX = 1e-5, 1e-2
@@ -248,8 +250,12 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     ``batch_envs`` cuts a rollout's batch to a range of envs.
 
     Set ``learn_iteration.profile = True`` to synchronize at the phase
-    boundaries and append {"rollout_s", "update_s"} (host clock) of each
-    iteration to ``learn_iteration.times``.
+    boundaries and append {"rollout_s", "update_s", "spans"} of each
+    iteration to ``learn_iteration.times``: the halves' times (host
+    clock) and the summary of the spans the iteration opened
+    (``utils.profiling.Recording.summary``: ``env.*``, ``terrain.refresh``,
+    ``actuator.sea``, ``kernel.chain_step``, ``ppo.act`` per rollout step,
+    ``ppo.minibatch`` per minibatch step).
     """
     opt = make_optimizer(alg_cfg)
     n_mb = alg_cfg.num_mini_batches
@@ -320,19 +326,20 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         with torch.no_grad():
             for t in range(num_steps):
                 aobs, cobs = obs if asym else (obs, obs)
-                eps = step_noise(noise, t, ts, aobs)
-                if recurrent:
-                    mean, mem_a = nets.actor_mean_rnn(model, aobs,
-                                                      memory["a"])
-                    action, logp = nets.sample_around(
-                        model, mean, ts.noise_generator, eps)
-                    std = model.std.expand_as(mean)
-                    value, mem_c = nets.critic_value_rnn(model, cobs,
-                                                         memory["c"])
-                else:
-                    action, logp, mean, std = nets.sample_action(
-                        model, aobs, ts.noise_generator, eps)
-                    value = nets.critic_value(model, cobs)
+                with profiling.span("ppo.act"):
+                    eps = step_noise(noise, t, ts, aobs)
+                    if recurrent:
+                        mean, mem_a = nets.actor_mean_rnn(model, aobs,
+                                                          memory["a"])
+                        action, logp = nets.sample_around(
+                            model, mean, ts.noise_generator, eps)
+                        std = model.std.expand_as(mean)
+                        value, mem_c = nets.critic_value_rnn(model, cobs,
+                                                             memory["c"])
+                    else:
+                        action, logp, mean, std = nets.sample_action(
+                            model, aobs, ts.noise_generator, eps)
+                        value = nets.critic_value(model, cobs)
                 env_state, tr = env.step(env_state, action)
                 steps.append(dict(
                     obs=aobs, cobs=cobs, action=action, logp=logp,
@@ -425,30 +432,31 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         stats = []
         for _ in range(n_ep):
             for idx in mb_idx:
-                if recurrent:
-                    mb = {k: v[:, idx] for k, v in flat.items()}
-                    mb["mem_a0"] = mem_start["a"][idx]
-                    mb["mem_c0"] = mem_start["c"][idx]
-                else:
-                    mb = {k: v[idx] for k, v in flat.items()}
-                loss, (s_loss, v_loss, kl) = ppo_loss(model, mb, alg_cfg,
-                                                      recurrent, asym, size)
-                grads = list(torch.autograd.grad(loss, params))
-                with torch.no_grad():
-                    grads, (loss, s_loss, v_loss, kl) = summed(
-                        grads, [loss.detach(), s_loss, v_loss, kl])
-                    if adaptive:
-                        lr = torch.where(kl > alg_cfg.desired_kl * 2.0,
-                                         torch.clamp_min(lr * INV_1_5,
-                                                         LR_MIN), lr)
-                        lr = torch.where(
-                            (kl < alg_cfg.desired_kl / 2.0) & (kl > 0.0),
-                            torch.clamp_max(lr * 1.5, LR_MAX), lr)
-                    updates = opt.update(grads, ts.opt_state)
-                    torch._foreach_mul_(updates, [-lr] * len(updates))
-                    torch._foreach_add_(params, updates)
-                stats.append(torch.stack([loss.detach(), s_loss, v_loss,
-                                          kl]))
+                with profiling.span("ppo.minibatch"):
+                    if recurrent:
+                        mb = {k: v[:, idx] for k, v in flat.items()}
+                        mb["mem_a0"] = mem_start["a"][idx]
+                        mb["mem_c0"] = mem_start["c"][idx]
+                    else:
+                        mb = {k: v[idx] for k, v in flat.items()}
+                    loss, (s_loss, v_loss, kl) = ppo_loss(
+                        model, mb, alg_cfg, recurrent, asym, size)
+                    grads = list(torch.autograd.grad(loss, params))
+                    with torch.no_grad():
+                        grads, (loss, s_loss, v_loss, kl) = summed(
+                            grads, [loss.detach(), s_loss, v_loss, kl])
+                        if adaptive:
+                            lr = torch.where(kl > alg_cfg.desired_kl * 2.0,
+                                             torch.clamp_min(lr * INV_1_5,
+                                                             LR_MIN), lr)
+                            lr = torch.where(
+                                (kl < alg_cfg.desired_kl / 2.0) & (kl > 0.0),
+                                torch.clamp_max(lr * 1.5, LR_MAX), lr)
+                        updates = opt.update(grads, ts.opt_state)
+                        torch._foreach_mul_(updates, [-lr] * len(updates))
+                        torch._foreach_add_(params, updates)
+                    stats.append(torch.stack([loss.detach(), s_loss, v_loss,
+                                              kl]))
         ts.lr = lr
 
         with torch.no_grad():
@@ -482,14 +490,18 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         while isinstance(device, tuple):        # the carried pack
             device = device[0]
         device = device.device
-        t0 = clock(device)
-        env_state, obs, batch = rollout(ts, env_state, obs, noise)
-        t1 = clock(device)
-        metrics = update(ts, batch, perm)
-        if learn_iteration.profile:
-            t2 = clock(device)
+        with (profiling.recording() if learn_iteration.profile
+              else contextlib.nullcontext()) as rec:
+            t0 = clock(device)
+            env_state, obs, batch = rollout(ts, env_state, obs, noise)
+            t1 = clock(device)
+            metrics = update(ts, batch, perm)
+            if rec is not None:
+                t2 = clock(device)
+        if rec is not None:
             learn_iteration.times.append({"rollout_s": t1 - t0,
-                                          "update_s": t2 - t1})
+                                          "update_s": t2 - t1,
+                                          "spans": rec.summary()})
         return ts, env_state, obs, metrics
 
     learn_iteration.rollout = rollout

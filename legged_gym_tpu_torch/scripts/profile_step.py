@@ -12,9 +12,12 @@ the top kernels by device time. Writes a Chrome trace under chiprun_out/.
 With ``--train`` the unit is one PPO iteration (24-step rollout, GAE, 20
 minibatch steps) through ``registry.make_runner``: go1 on rough terrain at
 1800 envs, or any other task as registered (aliengo, cassie, anymal_c_rough,
-anymal_c_flat on the general engine, ... at their own 4096 envs); the
-rollout / update split comes from a second, unprofiled window; the profiled
-window records device activity only; no trace is written unless asked.
+anymal_c_flat on the general engine, ... at their own 4096 envs). A first,
+unprofiled window gives the rollout / update split and the table of the
+program's spans (utils/profiling.py: per env step each span's count, total
+and self ms; host us per launch of the kernel wrapper; ms per minibatch
+step); a second, profiled window records device activity only; no trace
+is written unless asked.
 """
 from __future__ import annotations
 
@@ -107,7 +110,8 @@ def profile_train(args):
     runner, tcfg = registry.make_runner(env, name=args.task, log_root=None)
     horizon = tcfg.runner.num_steps_per_env
     runner.learn(2, init_at_random_ep_len=True)            # warm up
-    # unprofiled window: wall time and the rollout / update split
+    # unprofiled window: wall time, the rollout / update split and the
+    # spans
     runner.learn_fn.profile = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -122,6 +126,8 @@ def profile_train(args):
           f"rollout {1e3 * sum(t['rollout_s'] for t in times) / it:.1f} ms, "
           f"update {1e3 * sum(t['update_s'] for t in times) / it:.1f} ms "
           f"({torch.cuda.get_device_name(0)})")
+    for line in span_table(times):
+        print(line)
     runner.learn_fn.profile = False
     # device activity only: an iteration of the general engine issues
     # millions of host ops, whose CPU events would dwarf the device's
@@ -132,14 +138,36 @@ def profile_train(args):
         wall_on = time.perf_counter() - t0
     _report(prof, wall_on, it, "iteration",
             f"{args.task}, {env.num_envs} envs")
-    print(f"idle share against the profiler-off wall time: "
-          f"{1 - _busy_s(prof) / wall:.3f}")
     _export(prof, args.trace)
 
 
-def _busy_s(prof):
-    return 1e-6 * sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+def span_table(times):
+    """The lines of the span table of ``times`` (``learn_fn.times``
+    with ``profile`` on): per env step each span's count, total and self
+    ms, summed over the iterations; per call the host us of a
+    ``kernel.chain_step`` launch and the ms of a ``ppo.minibatch`` step."""
+    sums = {}
+    for t in times:
+        for name, s in t["spans"].items():
+            acc = sums.setdefault(name, [0, 0.0, 0.0])
+            acc[0] += s["n"]
+            acc[1] += s["total_s"]
+            acc[2] += s["self_s"]
+    steps = sums.get("env.step", [0])[0]
+    if not steps:
+        return ["no env step was recorded"]
+    per_call = {"kernel.chain_step": (1e6, "us"), "ppo.minibatch": (1e3, "ms")}
+    lines = [f"spans over {steps} env steps (profiler off):",
+             f"  {'span':<18} {'n/step':>7} {'total ms/step':>14} "
+             f"{'self ms/step':>13}  per call"]
+    for name, (n, total, own) in sums.items():
+        line = (f"  {name:<18} {n / steps:7.2f} {1e3 * total / steps:14.3f} "
+                f"{1e3 * own / steps:13.3f}")
+        if name in per_call:
+            scale, unit = per_call[name]
+            line += f"  {scale * total / n:.1f} {unit}"
+        lines.append(line)
+    return lines
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """The PyTorch port's math, state, general-tree dynamics and network
 against the JAX package, on the CPU, with random inputs made once by numpy
 and handed to both. Tolerance atol 1e-6 unless stated (float32 both sides,
-same formulas and summation order). Also the port's profiling utilities
-(utils/profiling.py)."""
+same formulas and summation order). Also the port's Chrome trace
+(utils/profiling.trace; its spans: test_torch_tracing.py)."""
 import json
 import os
 import subprocess
@@ -291,20 +291,6 @@ def test_actor_critic_init_is_the_same_at_any_thread_count():
 
 
 # ------------------------------------------------------------ profiling
-
-def test_meter_is_an_ema_of_steps_per_second(monkeypatch):
-    """Meter.tick against a hand-computed EMA on a scripted clock."""
-    from legged_gym_tpu_torch.utils import profiling
-
-    clock = iter([10.0, 10.5, 11.5, 11.75])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    m = profiling.Meter(alpha=0.25)
-    assert m.tick(100) is None                  # no interval yet
-    assert m.tick(100) == pytest.approx(200.0)  # 100 steps / 0.5 s
-    # then 100 / 1.0 = 100 and 100 / 0.25 = 400, each blended at 0.25
-    assert m.tick(100) == pytest.approx(0.75 * 200.0 + 0.25 * 100.0)
-    assert m.tick(100) == pytest.approx(0.75 * 175.0 + 0.25 * 400.0)
-
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     """trace() around a few ops on the CPU writes a Chrome trace that
