@@ -45,6 +45,7 @@ package and the reference):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Optional
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from legged_gym_tpu_torch import assets
+from legged_gym_tpu_torch.envs.tail_graph import TailGraphs
 from legged_gym_tpu_torch.model.robot import compile_model
 from legged_gym_tpu_torch.ops import quat as quat_ops
 from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_env_state
@@ -71,6 +73,12 @@ from legged_gym_tpu_torch.terrain.heightfield import (PatchExtractor,
                                                       sample_bilinear)
 from legged_gym_tpu_torch.terrain.terrain import Terrain, TerrainGrid
 from legged_gym_tpu_torch.utils import profiling
+
+# the EnvState fields the post-physics tail reads
+_TAIL_STATE = ("episode_length", "commands", "lin_vel_x_range",
+               "feet_air_time", "episode_sums", "last_actions",
+               "last_dof_vel", "terrain_level", "env_origin", "friction",
+               "mass_scales", "link_params")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,6 +350,9 @@ class LeggedEnv:
         self.push_interval = int(
             math.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self._device_constants()
+        # the post-physics tail's CUDA graphs, captured by the first step
+        # that may replay them (_tail)
+        self._graphs = None
 
     def _device_constants(self):
         """Per-step constants, uploaded once."""
@@ -368,6 +379,10 @@ class LeggedEnv:
         pts = torch.as_tensor(self.height_points, dtype=dt, device=dev)
         self._scan_p3 = torch.cat([pts, torch.zeros_like(pts[:1])])
         self._cp_radius = col(self.model.cp_radius)
+        # link inertias: the bodies' contributions, the nominal (nl, 10, 1)
+        self._contrib = torch.as_tensor(self.model.contrib, dtype=dt,
+                                        device=dev)
+        self._nominal_lp = broadcast_nominal(self.model, 1, dt, dev)
 
         def idx(a):
             return torch.as_tensor(a, dtype=torch.long, device=dev)
@@ -546,9 +561,8 @@ class LeggedEnv:
         dr = self.cfg.domain_rand
         if dr.randomize_base_mass or dr.randomize_limb_mass:
             return link_params_from_scales(self.model, mass_scales,
-                                           self.dtype)
-        return broadcast_nominal(self.model, n, self.dtype,
-                                 self.device).contiguous()
+                                           self.dtype, contrib=self._contrib)
+        return self._nominal_lp.expand(-1, -1, n).contiguous()
 
     def _draw_reset_physics(self, origins):
         """Fresh physics state for every env (selected by mask at reset):
@@ -708,14 +722,13 @@ class LeggedEnv:
             return self._step(state, actions)
 
     def _step(self, state, actions):
-        cfg = self.cfg
-        n = state.n
-        dev = self.device
-        clip_a = cfg.normalization.clip_actions
+        clip_a = self.cfg.normalization.clip_actions
         a = torch.clamp(actions.T.to(self.dtype), -clip_a, clip_a)
 
         # cached per-env terrain window, re-extracted every patch_refresh
         # steps; the physics gets its center crop
+        window = (state.patch, state.patch_T, state.patch_r0,
+                  state.patch_c0)
         patch = None
         contact_patch = None
         if self.grid is not None:
@@ -724,11 +737,9 @@ class LeggedEnv:
                     with profiling.span("terrain.refresh"):
                         tp = self._patch_extractor(state.physics.pos[0],
                                                    state.physics.pos[1])
-                        ph_c, pr0, pc0 = tp.h, tp.r0, tp.c0
-                        ph_T = ph_c.permute(1, 2, 0).contiguous()
-                else:
-                    ph_c, ph_T = state.patch, state.patch_T
-                    pr0, pc0 = state.patch_r0, state.patch_c0
+                        window = (tp.h, tp.h.permute(1, 2, 0).contiguous(),
+                                  tp.r0, tp.c0)
+                ph_c, ph_T, pr0, pc0 = window
                 patch = TerrainPatch(h=ph_c, r0=pr0, c0=pc0)
                 if self.chain_engine is not None:
                     lo = (self.patch_cache_S - self.contact_patch_S) // 2
@@ -746,240 +757,352 @@ class LeggedEnv:
                 physics, torques, contact_f, actuator_state, contact_ws = \
                     self._chain_physics(state, a, contact_patch, anchors)
 
-        # ---- post-physics bookkeeping ----
+        x = {name: getattr(state, name) for name in _TAIL_STATE}
+        x.update(physics=physics, torques=torques, contact_f=contact_f,
+                 actuator_state=actuator_state, contact_ws=contact_ws, a=a,
+                 window=window)
+        return self._tail(x, state.common_step + 1, actions)
+
+    # ------------------------------------------------ post-physics tail
+
+    def _push_step(self, common_step):
+        """Random pushes (:436-441) every push_interval common steps."""
+        return bool(self.cfg.domain_rand.push_robots
+                    and common_step % self.push_interval == 0)
+
+    def _curriculum_step(self, common_step):
+        """The command curriculum (:465-474) every max_episode_length
+        common steps."""
+        return bool(self.cfg.commands.curriculum
+                    and "tracking_lin_vel" in self.reward_scales
+                    and common_step % self.max_episode_length == 0)
+
+    def _graph_step(self, common_step, actions):
+        """Whether this step's tail may replay the CUDA graphs: on a card,
+        with the env axis whole (split over ranks, the finished envs'
+        statistics are an all-reduce), on a step that neither pushes nor
+        runs the command curriculum (host branches the graphs leave out),
+        with no gradient asked of the actions."""
+        return (self.device.type == "cuda" and self.mesh is None
+                and not self._push_step(common_step)
+                and not self._curriculum_step(common_step)
+                and not (actions.requires_grad and torch.is_grad_enabled()))
+
+    def _tail(self, x, common_step, actions):
+        """Everything after the physics: rewards, the masked reset and the
+        observations (``_tail_rewards``, ``_tail_reset``, ``_tail_obs``),
+        each in its span. Run eagerly, or on the steps ``_graph_step``
+        allows as replays of their CUDA graphs (envs/tail_graph.py), which
+        the first such step captures after running them eagerly, and any
+        such step whose inputs no longer fit the captured ones. Returns
+        (new state, transition)."""
+        graph = self._graph_step(common_step, actions)
+        graphs = self._graphs
+        leaves = None
+        if graph and graphs is not None:
+            leaves = graphs.match(x, self.generator)
+        if leaves is not None:
+            with profiling.span("env.graph"):
+                with profiling.span("env.rewards"):
+                    graphs.stage(leaves)
+                    graphs.replay(0)
+                with profiling.span("env.reset"):
+                    graphs.replay(1)
+                with profiling.span("env.obs"):
+                    graphs.replay(2)
+                    return self._outputs(graphs.outputs(leaves),
+                                         common_step)
+        sections = [functools.partial(f, common_step) for f in (
+            self._tail_rewards, self._tail_reset, self._tail_obs)]
         with profiling.span("env.rewards"):
-            episode_length = state.episode_length + 1
-            common_step = state.common_step + 1
-
-            base_lin_vel = physics.base_lin_vel()
-            base_ang_vel = physics.base_ang_vel()
-            projected_gravity = quat_ops.rotate_inverse(
-                physics.quat, self._gvec.expand(3, n))
-
-            # command resampling + heading controller (:337-352)
-            resample = (episode_length % self.resample_interval) == 0
-            commands, vx_unit = self._resample_commands(state.commands,
-                                                        resample)
-            commands = self._apply_vx_and_deadband(
-                commands, vx_unit, state.lin_vel_x_range, resample)
-            if cfg.commands.heading_command:
-                fwd = quat_ops.rotate(physics.quat, self._fwd.expand(3, n))
-                heading = torch.atan2(fwd[1], fwd[0])
-                commands = torch.cat([commands[:2], torch.clamp(
-                    0.5 * quat_ops.wrap_to_pi(commands[3] - heading),
-                    -1.0, 1.0)[None], commands[3:]], dim=0)
-
-            # height scan (:818-854)
-            if self.measure_heights:
-                measured = self._get_heights(physics, patch)   # (P, N)
-            else:
-                measured = torch.zeros((1, n), dtype=self.dtype, device=dev)
-
-            # random pushes (:436-441): set world-frame base xy velocity; the
-            # rewards / obs of this step keep the pre-push velocity
-            if cfg.domain_rand.push_robots and \
-                    common_step % self.push_interval == 0:
-                mx = cfg.domain_rand.max_push_vel_xy
-                push_xy = self._uniform_envs((2,), n, -mx, mx)
-                lin_w = torch.cat([push_xy, physics.world_lin_vel()[2:]],
-                                  dim=0)
-                v_b = quat_ops.rotate_inverse(physics.quat, lin_w)
-                physics = dataclasses.replace(
-                    physics, vel=torch.cat([physics.vel[0:3], v_b], dim=0))
-
-            # ---- termination (:143-148) ----
-            if len(self.term_idx):
-                tf = contact_f[:, self._term]                   # (3, k, N)
-                term = torch.any(torch.linalg.vector_norm(tf, dim=0) > 1.0,
-                                 dim=0)
-            else:
-                term = torch.zeros(n, dtype=torch.bool, device=dev)
-            time_out = episode_length > self.max_episode_length
-            done = term | time_out
-
-            # ---- rewards (:195-212, 857-966) ----
-            feet_air_time = state.feet_air_time
-            ctx = dict(
-                physics=physics, base_lin_vel=base_lin_vel,
-                base_ang_vel=base_ang_vel,
-                projected_gravity=projected_gravity, commands=commands,
-                torques=torques, contact_forces=contact_f,
-                measured_heights=measured, last_actions=state.last_actions,
-                actions=a, last_dof_vel=state.last_dof_vel,
-                term=term, time_out=time_out)
-
-            # stateful feet_air_time term (:941-949)
-            if len(self.feet_idx):
-                fz = contact_f[2, self._feet]                   # (nf, N)
-                contact = fz > 1.0
-                first_contact = (feet_air_time > 0.0) & contact
-                feet_air_time = feet_air_time + self.dt
-                rew_air = torch.sum((feet_air_time - 0.5) * first_contact,
-                                    dim=0)
-                rew_air = rew_air * (
-                    torch.linalg.vector_norm(commands[:2], dim=0) > 0.1)
-                feet_air_time = feet_air_time * (~contact)
-                ctx["feet_air_time_reward"] = rew_air
-
-            reward = torch.zeros(n, dtype=self.dtype, device=dev)
-            episode_sums = dict(state.episode_sums)
-            for name in self.reward_names:
-                r = self._reward(name, ctx) * self.reward_scales[name]
-                reward = reward + r
-                episode_sums[name] = episode_sums[name] + r
-            if cfg.rewards.only_positive_rewards:
-                reward = torch.clamp_min(reward, 0.0)
-            if "termination" in self.reward_scales:
-                r = ((term & ~time_out).to(self.dtype)
-                     * self.reward_scales["termination"])
-                reward = reward + r
-                episode_sums["termination"] = episode_sums["termination"] + r
-
-        # ---- masked reset (:150-193) ----
+            v = {**x, **sections[0](x)}
         with profiling.span("env.reset"):
-            donef = done.to(self.dtype)
-
-            # terrain curriculum (:443-463)
-            terrain_level = state.terrain_level
-            env_origin = state.env_origin
-            if cfg.terrain.curriculum:
-                dist = torch.linalg.vector_norm(physics.pos[:2]
-                                                - env_origin[:2], dim=0)
-                move_up = dist > self.terrain.env_length / 2
-                move_down = (dist < torch.linalg.vector_norm(commands[:2],
-                                                             dim=0)
-                             * self.max_episode_length_s * 0.5) & ~move_up
-                new_lvl = (terrain_level + move_up.to(torch.int32)
-                           - move_down.to(torch.int32))
-                rand_lvl = self._randint_envs(self.max_terrain_level, n,
-                                              dtype=torch.int32)
-                new_lvl = torch.where(new_lvl >= self.max_terrain_level,
-                                      rand_lvl, torch.clamp_min(new_lvl, 0))
-                terrain_level = torch.where(done, new_lvl, terrain_level)
-                looked_up = self._terrain_origins[
-                    terrain_level.to(torch.int64), self._terrain_types].T
-                env_origin = torch.where(done[None, :], looked_up, env_origin)
-
-            # the envs that finished this step: their count, summed episode
-            # lengths and reward sums, and the summed terrain levels; over
-            # every rank's envs when the env axis is split
-            names = list(episode_sums)
-            stats = torch.stack(
-                [torch.sum(donef),
-                 torch.sum(episode_length * done).to(self.dtype),
-                 torch.sum(terrain_level.to(self.dtype))]
-                + [torch.sum(episode_sums[name] * donef) for name in names])
-            stats = all_sum(stats, self.mesh)
-            count = stats[0]
-            finished = dict(zip(names, stats[3:]))
-
-            # command curriculum (:465-474): every max_episode_length common
-            # steps, gated on the mean tracking reward of finishing envs
-            lin_vel_x_range = state.lin_vel_x_range
-            if cfg.commands.curriculum and "tracking_lin_vel" in \
-                    self.reward_scales and \
-                    common_step % self.max_episode_length == 0:
-                mean_track = finished["tracking_lin_vel"] / torch.clamp_min(
-                    count, 1.0)
-                crit = (mean_track / self.max_episode_length
-                        > 0.8 * self.reward_scales["tracking_lin_vel"])
-                fire = (count > 0) & crit
-                mc = cfg.commands.max_curriculum
-                widened = torch.stack([
-                    torch.clamp(lin_vel_x_range[0] - 0.5, -mc, 0.0),
-                    torch.clamp(lin_vel_x_range[1] + 0.5, 0.0, mc)])
-                lin_vel_x_range = torch.where(fire, widened, lin_vel_x_range)
-
-            # new physics for reset envs
-            physics = physics.where(done, self._draw_reset_physics(env_origin))
-
-            # resample commands of reset envs (:165)
-            commands, vx_unit = self._resample_commands(commands, done)
-            commands = self._apply_vx_and_deadband(commands, vx_unit,
-                                                   lin_vel_x_range, done)
-
-            # domain-rand redraw on reset (extension; off by default)
-            friction, mass_scales, link_params = (state.friction,
-                                                  state.mass_scales,
-                                                  state.link_params)
-            if cfg.domain_rand.resample_on_reset:
-                new_f = self._draw_friction(n)
-                new_m = self._draw_mass_scales(n)
-                friction = torch.where(done, new_f, friction)
-                mass_scales = torch.where(done[None, :], new_m, mass_scales)
-                link_params = self._link_params(mass_scales, n)
-
-            # reset envs: swap in their (possibly new) cell's static window
-            if self.grid is not None:
-                rp, rpT, rr0, rc0 = self._cell_patch_lookup(
-                    self._env_cells(terrain_level))
-                ph_c = torch.where(done[:, None, None], rp, ph_c)
-                ph_T = torch.where(done[None, None, :], rpT, ph_T)
-                pr0 = torch.where(done, rr0, pr0)
-                pc0 = torch.where(done, rc0, pc0)
-            else:
-                ph_c, ph_T = state.patch, state.patch_T
-                pr0, pc0 = state.patch_r0, state.patch_c0
-
-            feet_air_time = feet_air_time * (~done)[None, :]
-            episode_length = torch.where(done, 0, episode_length)
-            # actuator recurrent state zeroed per reset env (anymal.py:56-60)
-            actuator_state = {k: v * (~done).to(v.dtype)
-                              for k, v in actuator_state.items()}
-
-            # episode logging sums over envs that finished this step
-            ep_out = {name: finished[name] / self.max_episode_length_s
-                      for name in names}
-            episode_sums = {name: s * (1.0 - donef)
-                            for name, s in episode_sums.items()}
-
-        # ---- observations (:214-231) ----
+            v = {**v, **sections[1](v)}
         with profiling.span("env.obs"):
-            obs, obs_clean = self._compute_obs(
-                physics, base_lin_vel, base_ang_vel, projected_gravity,
-                commands, a, measured)
-            clip_o = cfg.normalization.clip_observations
-            obs = torch.clamp(obs, -clip_o, clip_o)
-            priv_obs = None
-            if self.num_privileged_obs is not None:
-                # what the real robot cannot sense: noiseless obs, the true
-                # ground friction, the base-mass scale, the feet contact forces
-                feet_f = contact_f[:, self._feet].reshape(
-                    3 * len(self.feet_idx), n)
-                priv_obs = torch.cat([
-                    torch.clamp(obs_clean, -clip_o, clip_o),
-                    friction[None, :],
-                    mass_scales[:1],
-                    feet_f * 0.01,
-                ], dim=0).T                                     # (N, P)
+            out = self._outputs(sections[2](v), common_step)
+        if graph:
+            self._graphs = TailGraphs(sections, x, self.generator)
+        return out
 
-            if self._warm_start:
-                # fresh spawns start with no remembered stick anchors: back to
-                # the far sentinel, so the stale rule re-snaps on first touch
-                contact_ws = torch.where(done, ANCHOR_SENTINEL, contact_ws)
+    def _tail_rewards(self, common_step, v):
+        """Bookkeeping, height scan, pushes, termination and the reward
+        terms."""
+        cfg = self.cfg
+        physics, commands = v["physics"], v["commands"]
+        contact_f = v["contact_f"]
+        n = physics.n
+        dev = self.device
+        episode_length = v["episode_length"] + 1
 
-            new_state = EnvState(
-                physics=physics, episode_length=episode_length,
-                common_step=common_step, commands=commands, actions=a,
-                patch=ph_c, patch_T=ph_T, patch_r0=pr0, patch_c0=pc0,
-                last_actions=a, last_dof_vel=physics.qd,
-                feet_air_time=feet_air_time, terrain_level=terrain_level,
-                env_origin=env_origin, friction=friction,
-                mass_scales=mass_scales, link_params=link_params,
-                lin_vel_x_range=lin_vel_x_range, episode_sums=episode_sums,
-                contact_ws=contact_ws, actuator_state=actuator_state)
-            tr = Transition(
-                obs=obs.T, reward=reward, done=done, time_out=time_out,
-                episode_sums=ep_out, episode_count=count,
-                episode_length_sum=stats[1],
-                terrain_level_mean=stats[2] / self._drawn(n),
-                max_command_x=lin_vel_x_range[1],
-                torques=torques,
-                feet_contact_z=(contact_f[2, self._feet] if len(self.feet_idx)
-                                else torch.zeros((0, n), dtype=self.dtype,
-                                                 device=dev)),
-                privileged_obs=priv_obs)
-            return new_state, tr
+        base_lin_vel = physics.base_lin_vel()
+        base_ang_vel = physics.base_ang_vel()
+        projected_gravity = quat_ops.rotate_inverse(
+            physics.quat, self._gvec.expand(3, n))
+
+        # command resampling + heading controller (:337-352)
+        resample = (episode_length % self.resample_interval) == 0
+        commands, vx_unit = self._resample_commands(commands, resample)
+        commands = self._apply_vx_and_deadband(
+            commands, vx_unit, v["lin_vel_x_range"], resample)
+        if cfg.commands.heading_command:
+            fwd = quat_ops.rotate(physics.quat, self._fwd.expand(3, n))
+            heading = torch.atan2(fwd[1], fwd[0])
+            commands = torch.cat([commands[:2], torch.clamp(
+                0.5 * quat_ops.wrap_to_pi(commands[3] - heading),
+                -1.0, 1.0)[None], commands[3:]], dim=0)
+
+        # height scan (:818-854)
+        if self.measure_heights:
+            ph_c, _, pr0, pc0 = v["window"]
+            measured = self._get_heights(
+                physics, (TerrainPatch(h=ph_c, r0=pr0, c0=pc0)
+                          if self.grid is not None else None))  # (P, N)
+        else:
+            measured = torch.zeros((1, n), dtype=self.dtype, device=dev)
+
+        # random pushes (:436-441): set world-frame base xy velocity; the
+        # rewards / obs of this step keep the pre-push velocity
+        if self._push_step(common_step):
+            mx = cfg.domain_rand.max_push_vel_xy
+            push_xy = self._uniform_envs((2,), n, -mx, mx)
+            lin_w = torch.cat([push_xy, physics.world_lin_vel()[2:]],
+                              dim=0)
+            v_b = quat_ops.rotate_inverse(physics.quat, lin_w)
+            physics = dataclasses.replace(
+                physics, vel=torch.cat([physics.vel[0:3], v_b], dim=0))
+
+        # ---- termination (:143-148) ----
+        if len(self.term_idx):
+            tf = contact_f[:, self._term]                       # (3, k, N)
+            term = torch.any(torch.linalg.vector_norm(tf, dim=0) > 1.0,
+                             dim=0)
+        else:
+            term = torch.zeros(n, dtype=torch.bool, device=dev)
+        time_out = episode_length > self.max_episode_length
+        done = term | time_out
+
+        # ---- rewards (:195-212, 857-966) ----
+        feet_air_time = v["feet_air_time"]
+        ctx = dict(
+            physics=physics, base_lin_vel=base_lin_vel,
+            base_ang_vel=base_ang_vel,
+            projected_gravity=projected_gravity, commands=commands,
+            torques=v["torques"], contact_forces=contact_f,
+            measured_heights=measured, last_actions=v["last_actions"],
+            actions=v["a"], last_dof_vel=v["last_dof_vel"],
+            term=term, time_out=time_out)
+
+        # stateful feet_air_time term (:941-949)
+        if len(self.feet_idx):
+            fz = contact_f[2, self._feet]                       # (nf, N)
+            contact = fz > 1.0
+            first_contact = (feet_air_time > 0.0) & contact
+            feet_air_time = feet_air_time + self.dt
+            rew_air = torch.sum((feet_air_time - 0.5) * first_contact,
+                                dim=0)
+            rew_air = rew_air * (
+                torch.linalg.vector_norm(commands[:2], dim=0) > 0.1)
+            feet_air_time = feet_air_time * (~contact)
+            ctx["feet_air_time_reward"] = rew_air
+
+        reward = torch.zeros(n, dtype=self.dtype, device=dev)
+        episode_sums = dict(v["episode_sums"])
+        for name in self.reward_names:
+            r = self._reward(name, ctx) * self.reward_scales[name]
+            reward = reward + r
+            episode_sums[name] = episode_sums[name] + r
+        if cfg.rewards.only_positive_rewards:
+            reward = torch.clamp_min(reward, 0.0)
+        if "termination" in self.reward_scales:
+            r = ((term & ~time_out).to(self.dtype)
+                 * self.reward_scales["termination"])
+            reward = reward + r
+            episode_sums["termination"] = episode_sums["termination"] + r
+        return dict(
+            episode_length=episode_length, base_lin_vel=base_lin_vel,
+            base_ang_vel=base_ang_vel, projected_gravity=projected_gravity,
+            commands=commands, measured=measured, physics=physics,
+            time_out=time_out, done=done, feet_air_time=feet_air_time,
+            reward=reward, episode_sums=episode_sums)
+
+    def _tail_reset(self, common_step, v):
+        """The masked reset (:150-193): curricula, the finished envs'
+        statistics, reset draws, the window swap, zeroing."""
+        cfg = self.cfg
+        done, episode_sums = v["done"], v["episode_sums"]
+        n = done.shape[0]
+        donef = done.to(self.dtype)
+
+        # terrain curriculum (:443-463)
+        terrain_level = v["terrain_level"]
+        env_origin = v["env_origin"]
+        physics = v["physics"]
+        if cfg.terrain.curriculum:
+            dist = torch.linalg.vector_norm(physics.pos[:2]
+                                            - env_origin[:2], dim=0)
+            move_up = dist > self.terrain.env_length / 2
+            move_down = (dist < torch.linalg.vector_norm(v["commands"][:2],
+                                                         dim=0)
+                         * self.max_episode_length_s * 0.5) & ~move_up
+            new_lvl = (terrain_level + move_up.to(torch.int32)
+                       - move_down.to(torch.int32))
+            rand_lvl = self._randint_envs(self.max_terrain_level, n,
+                                          dtype=torch.int32)
+            new_lvl = torch.where(new_lvl >= self.max_terrain_level,
+                                  rand_lvl, torch.clamp_min(new_lvl, 0))
+            terrain_level = torch.where(done, new_lvl, terrain_level)
+            looked_up = self._terrain_origins[
+                terrain_level.to(torch.int64), self._terrain_types].T
+            env_origin = torch.where(done[None, :], looked_up, env_origin)
+
+        # the envs that finished this step: their count, summed episode
+        # lengths and reward sums, and the summed terrain levels; over
+        # every rank's envs when the env axis is split
+        names = list(episode_sums)
+        episode_length = v["episode_length"]
+        stats = torch.stack(
+            [torch.sum(donef),
+             torch.sum(episode_length * done).to(self.dtype),
+             torch.sum(terrain_level.to(self.dtype))]
+            + [torch.sum(episode_sums[name] * donef) for name in names])
+        stats = all_sum(stats, self.mesh)
+        count = stats[0]
+        finished = dict(zip(names, stats[3:]))
+
+        # command curriculum (:465-474): every max_episode_length common
+        # steps, gated on the mean tracking reward of finishing envs
+        lin_vel_x_range = v["lin_vel_x_range"]
+        if self._curriculum_step(common_step):
+            mean_track = finished["tracking_lin_vel"] / torch.clamp_min(
+                count, 1.0)
+            crit = (mean_track / self.max_episode_length
+                    > 0.8 * self.reward_scales["tracking_lin_vel"])
+            fire = (count > 0) & crit
+            mc = cfg.commands.max_curriculum
+            widened = torch.stack([
+                torch.clamp(lin_vel_x_range[0] - 0.5, -mc, 0.0),
+                torch.clamp(lin_vel_x_range[1] + 0.5, 0.0, mc)])
+            lin_vel_x_range = torch.where(fire, widened, lin_vel_x_range)
+
+        # new physics for reset envs
+        physics = physics.where(done, self._draw_reset_physics(env_origin))
+
+        # resample commands of reset envs (:165)
+        commands, vx_unit = self._resample_commands(v["commands"], done)
+        commands = self._apply_vx_and_deadband(commands, vx_unit,
+                                               lin_vel_x_range, done)
+
+        # domain-rand redraw on reset (extension; off by default)
+        friction, mass_scales, link_params = (v["friction"],
+                                              v["mass_scales"],
+                                              v["link_params"])
+        if cfg.domain_rand.resample_on_reset:
+            new_f = self._draw_friction(n)
+            new_m = self._draw_mass_scales(n)
+            friction = torch.where(done, new_f, friction)
+            mass_scales = torch.where(done[None, :], new_m, mass_scales)
+            link_params = self._link_params(mass_scales, n)
+
+        # reset envs: swap in their (possibly new) cell's static window
+        window = v["window"]
+        if self.grid is not None:
+            ph_c, ph_T, pr0, pc0 = window
+            rp, rpT, rr0, rc0 = self._cell_patch_lookup(
+                self._env_cells(terrain_level))
+            window = (torch.where(done[:, None, None], rp, ph_c),
+                      torch.where(done[None, None, :], rpT, ph_T),
+                      torch.where(done, rr0, pr0),
+                      torch.where(done, rc0, pc0))
+
+        # actuator recurrent state zeroed per reset env (anymal.py:56-60)
+        actuator_state = {k: t * (~done).to(t.dtype)
+                          for k, t in v["actuator_state"].items()}
+        return dict(
+            terrain_level=terrain_level, env_origin=env_origin,
+            count=count, stats=stats, lin_vel_x_range=lin_vel_x_range,
+            physics=physics, commands=commands, friction=friction,
+            mass_scales=mass_scales, link_params=link_params,
+            window=window,
+            feet_air_time=v["feet_air_time"] * (~done)[None, :],
+            episode_length=torch.where(done, 0, episode_length),
+            actuator_state=actuator_state,
+            # episode logging sums over envs that finished this step
+            ep_out={name: finished[name] / self.max_episode_length_s
+                    for name in names},
+            episode_sums={name: s * (1.0 - donef)
+                          for name, s in episode_sums.items()})
+
+    def _tail_obs(self, common_step, v):
+        """Observations (:214-231), the privileged observations, the
+        anchors of reset envs; returns every tensor of the new state and
+        the transition (``_outputs``)."""
+        physics, done, contact_f = v["physics"], v["done"], v["contact_f"]
+        n = done.shape[0]
+        obs, obs_clean = self._compute_obs(
+            physics, v["base_lin_vel"], v["base_ang_vel"],
+            v["projected_gravity"], v["commands"], v["a"], v["measured"])
+        clip_o = self.cfg.normalization.clip_observations
+        obs = torch.clamp(obs, -clip_o, clip_o)
+        priv_obs = None
+        if self.num_privileged_obs is not None:
+            # what the real robot cannot sense: noiseless obs, the true
+            # ground friction, the base-mass scale, the feet contact forces
+            feet_f = contact_f[:, self._feet].reshape(
+                3 * len(self.feet_idx), n)
+            priv_obs = torch.cat([
+                torch.clamp(obs_clean, -clip_o, clip_o),
+                v["friction"][None, :],
+                v["mass_scales"][:1],
+                feet_f * 0.01,
+            ], dim=0).T                                         # (N, P)
+
+        contact_ws = v["contact_ws"]
+        if self._warm_start:
+            # fresh spawns start with no remembered stick anchors: back to
+            # the far sentinel, so the stale rule re-snaps on first touch
+            contact_ws = torch.where(done, ANCHOR_SENTINEL, contact_ws)
+
+        keep = ("physics", "episode_length", "commands", "a", "window",
+                "feet_air_time", "terrain_level", "env_origin", "friction",
+                "mass_scales", "link_params", "lin_vel_x_range",
+                "episode_sums", "actuator_state", "reward", "done",
+                "time_out", "ep_out", "count", "torques")
+        stats = v["stats"]
+        return dict(
+            {name: v[name] for name in keep},
+            contact_ws=contact_ws, obs=obs.T, privileged_obs=priv_obs,
+            episode_length_sum=stats[1],
+            terrain_level_mean=stats[2] / self._drawn(n),
+            max_command_x=v["lin_vel_x_range"][1],
+            feet_contact_z=(contact_f[2, self._feet] if len(self.feet_idx)
+                            else torch.zeros((0, n), dtype=self.dtype,
+                                             device=self.device)))
+
+    def _outputs(self, o, common_step):
+        """(new state, transition) from ``_tail_obs``'s tensors."""
+        ph_c, ph_T, pr0, pc0 = o["window"]
+        new_state = EnvState(
+            physics=o["physics"], episode_length=o["episode_length"],
+            common_step=common_step, commands=o["commands"],
+            actions=o["a"], patch=ph_c, patch_T=ph_T, patch_r0=pr0,
+            patch_c0=pc0, last_actions=o["a"],
+            last_dof_vel=o["physics"].qd, feet_air_time=o["feet_air_time"],
+            terrain_level=o["terrain_level"], env_origin=o["env_origin"],
+            friction=o["friction"], mass_scales=o["mass_scales"],
+            link_params=o["link_params"],
+            lin_vel_x_range=o["lin_vel_x_range"],
+            episode_sums=o["episode_sums"], contact_ws=o["contact_ws"],
+            actuator_state=o["actuator_state"])
+        tr = Transition(
+            obs=o["obs"], reward=o["reward"], done=o["done"],
+            time_out=o["time_out"], episode_sums=o["ep_out"],
+            episode_count=o["count"],
+            episode_length_sum=o["episode_length_sum"],
+            terrain_level_mean=o["terrain_level_mean"],
+            max_command_x=o["max_command_x"], torques=o["torques"],
+            feet_contact_z=o["feet_contact_z"],
+            privileged_obs=o["privileged_obs"])
+        return new_state, tr
 
     # ------------------------------------------------------------- teleop
 

@@ -16,16 +16,21 @@ def nominal_link_params(model):
     return params
 
 
-def link_params_from_scales(model, scales, dtype=torch.float32):
+def link_params_from_scales(model, scales, dtype=torch.float32,
+                            contrib=None):
     """scales: (n_orig, N) per-original-body mass scales -> (nl, 10, N).
-    Contributions are added in body order, as in the JAX package."""
+    Contributions are added in body order, as in the JAX package.
+    ``contrib``: ``model.contrib`` already on the scales' device in
+    ``dtype`` (no host-to-device copy, so the call can be captured in a
+    CUDA graph)."""
     n = scales.shape[-1]
+    if contrib is None:
+        contrib = torch.as_tensor(model.contrib, dtype=dtype,
+                                  device=scales.device)
     out = torch.zeros((model.nl, 10, n), dtype=dtype, device=scales.device)
     for b in range(model.n_orig):
         li = int(model.contrib_link[b])
-        cb = torch.as_tensor(model.contrib[b], dtype=dtype,
-                             device=scales.device)[:, None]
-        out[li] = out[li] + cb * scales[b][None]
+        out[li] = out[li] + contrib[b][:, None] * scales[b][None]
     return out
 
 

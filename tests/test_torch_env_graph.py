@@ -1,0 +1,213 @@
+"""The env step's post-physics tail replayed as CUDA graphs
+(envs/tail_graph.py, ``LeggedEnv._tail``).
+
+On the CPU: the selection rule runs the tail eagerly on a CPU device,
+with a mesh, on push and command-curriculum steps and when the actions
+ask for a gradient; a CPU env never captures; a state survives the
+flattening the graphs stage their inputs by.
+
+On the card (marker ``cuda``, skipped without one): go1 and
+anymal_c_rough on rough trimesh at 512 envs over 44 steps, with pushes,
+terrain-window refreshes, command-curriculum steps and timeouts inside
+the run, against the same env forced eager: every step's transition, new
+state and generator state equal to the bit, the outputs of a step
+unchanged by the next, and the ``env.graph`` span counted once per step
+that replayed. No JAX here: the card runs this file with
+``--noconftest``.
+
+The benchmark's reader of ``env_graph_share.train``
+(benchmark/metrics/env_graph_share.py) over hand-made span summaries:
+the ``env.graph`` count over the ``env.step`` count x 100, and nothing
+without summaries or where the span never opened."""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from benchmark import spec
+from legged_gym_tpu_torch import registry
+from legged_gym_tpu_torch.envs.tail_graph import flatten, unflatten
+from legged_gym_tpu_torch.utils import profiling
+
+PUSH = 13          # policy steps between pushes
+EPISODE = 20       # policy steps of an episode: the command curriculum's
+                   # period, and timeouts from step 21
+STEPS = 44
+
+
+def _cfg(task, num_envs):
+    """Rough trimesh with the height scan, a push every PUSH steps and the
+    command curriculum every EPISODE steps."""
+    cfg, _ = registry.get_cfgs(task)
+    cfg.env.num_envs = num_envs
+    cfg.terrain.mesh_type = "trimesh"
+    cfg.terrain.measure_heights = True
+    cfg.terrain.curriculum = True
+    cfg.terrain.num_rows = 4
+    cfg.terrain.num_cols = 4
+    cfg.env.num_observations = 235
+    policy_dt = cfg.control.decimation * cfg.sim.dt
+    cfg.domain_rand.push_robots = True
+    cfg.domain_rand.push_interval_s = PUSH * policy_dt
+    cfg.env.episode_length_s = EPISODE * policy_dt
+    cfg.commands.curriculum = True
+    return cfg
+
+
+def test_the_selection_rule_runs_eager_where_graphs_do_not_apply(
+        monkeypatch):
+    cfg = _cfg("go1", 4)
+    cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+    env, _ = registry.make_env(cfg=cfg, device="cpu")
+    assert (env.push_interval, env.max_episode_length) == (PUSH, EPISODE)
+    a = torch.zeros((env.num_envs, env.num_actions))
+    assert not env._graph_step(1, a)                       # a CPU device
+    monkeypatch.setattr(env, "device", torch.device("cuda"))
+    assert env._graph_step(1, a)
+    assert not env._graph_step(PUSH, a)                    # a push step
+    assert not env._graph_step(EPISODE, a)                 # the curriculum
+    assert env._graph_step(PUSH + 1, a)
+    with torch.enable_grad():
+        assert not env._graph_step(1, a.clone().requires_grad_())
+    monkeypatch.setattr(env, "mesh", object())             # split over ranks
+    assert not env._graph_step(1, a)
+
+
+def test_a_cpu_env_never_captures():
+    cfg = _cfg("go1", 4)
+    cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+    env, _ = registry.make_env(cfg=cfg, device="cpu")
+    state, _ = env.reset()
+    with profiling.recording() as rec, torch.no_grad():
+        for _ in range(3):
+            state, _ = env.step(state, torch.zeros((env.num_envs,
+                                                    env.num_actions)))
+    assert env._graphs is None
+    assert rec.summary()["env.step"]["n"] == 3
+    assert "env.graph" not in rec.summary()
+
+
+def test_flatten_rebuilds_a_state_from_its_tensors():
+    cfg = _cfg("anymal_c_rough", 2)
+    cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+    env, _ = registry.make_env(cfg=cfg, device="cpu")
+    state = env.initial_state()
+    leaves, spec = flatten(state)
+    again = unflatten(spec, leaves)
+    assert type(again) is type(state) and again.common_step == 0
+    got, _ = flatten(again)
+    assert len(got) == len(leaves) and all(
+        a is b for a, b in zip(got, leaves))
+    assert set(again.actuator_state) == {"h", "c"}
+    assert again.contact_ws is state.contact_ws
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+
+
+def _same(a, b):
+    """Equal to the bit, tensor by tensor, with equal structures."""
+    la, sa = flatten(a)
+    lb, sb = flatten(b)
+    return sa == sb and len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _copy(x):
+    leaves, spec = flatten(x)
+    return unflatten(spec, [t.clone() for t in leaves])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["go1", "anymal_c_rough"])
+def test_graphed_tail_equals_the_eager_tail_to_the_bit(task, monkeypatch):
+    _need_card()
+    graphed, _ = registry.make_env(cfg=_cfg(task, 512), seed=7,
+                                   device="cuda")
+    eager, _ = registry.make_env(cfg=_cfg(task, 512), seed=7,
+                                 device="cuda")
+    monkeypatch.setattr(eager, "_graph_step", lambda *args: False)
+    draws = torch.Generator(device="cuda")
+    draws.manual_seed(11)
+    replayed, kinds = 0, set()
+    with torch.no_grad():
+        s_g, obs_g = graphed.reset()
+        s_e, obs_e = eager.reset()
+        assert torch.equal(obs_g, obs_e)
+        kept = None
+        with profiling.recording() as rec:
+            for _ in range(STEPS):
+                a = 0.5 * torch.randn((graphed.num_envs, graphed.num_actions),
+                                      generator=draws, device="cuda")
+                step = s_g.common_step + 1
+                rule = graphed._graph_step(step, a)
+                if step % PUSH == 0:
+                    kinds.add("push")
+                if step % EPISODE == 0:
+                    kinds.add("curriculum")
+                if s_g.common_step % graphed.patch_refresh == 0:
+                    kinds.add("refresh")
+                before = graphed._graphs
+                out_g = graphed.step(s_g, a)
+                out_e = eager.step(s_e, a)
+                if rule and before is not None and graphed._graphs is before:
+                    replayed += 1
+                assert _same(out_g, out_e), step
+                assert torch.equal(graphed.generator.get_state(),
+                                   eager.generator.get_state()), step
+                if out_e[1].done.any():
+                    kinds.add("reset")
+                if kept is not None:
+                    # the previous step's outputs, after this step
+                    assert _same(kept[0], kept[1]), step
+                kept = (out_g, _copy(out_g))
+                s_g, s_e = out_g[0], out_e[0]
+        torch.cuda.synchronize()
+    assert kinds == {"push", "curriculum", "refresh", "reset"}
+    # eager: 3 pushes, 2 curriculum steps, and the steps that captured
+    # (the reset's, whose inputs come from initial_state, and the next)
+    assert replayed >= STEPS - 3 - 2 - 2
+    spans = rec.summary()
+    assert spans["env.graph"]["n"] == replayed
+    assert spans["env.step"]["n"] == 2 * STEPS
+
+
+def _span_record(graphed_per_iteration, summaries=True):
+    """A window of two iterations of 24 env steps each, whose tails
+    replayed in ``graphed_per_iteration[i]`` of them."""
+    times = [{"rollout_s": 0.5, "update_s": 0.1},
+             {"rollout_s": 0.7, "update_s": 0.3}]
+    if summaries:
+        for t, graphed in zip(times, graphed_per_iteration):
+            t["spans"] = {"env.step": {"n": 24, "total_s": 0.48,
+                                       "self_s": 0.0}}
+            if graphed:
+                t["spans"]["env.graph"] = {"n": graphed,
+                                           "total_s": 1e-3 * graphed,
+                                           "self_s": 0.0}
+    return {"record": {"seconds": 10.0, "units": 2, "spans": times}}
+
+
+@pytest.mark.parametrize("graphed, share", [((24, 24), 100.0),
+                                            ((23, 23), 100.0 * 46 / 48),
+                                            ((24, 0), 50.0),
+                                            ((0, 0), None)])
+def test_env_graph_share_reads_the_graphed_steps_share(graphed, share):
+    got = spec.metric_reader("env_graph_share.train")(_span_record(graphed))
+    assert got == (share if share is None else pytest.approx(share))
+
+
+def test_env_graph_share_reads_nothing_without_summaries():
+    read = spec.metric_reader("env_graph_share.train")
+    for bundle in (_span_record((24, 24), summaries=False),
+                   {"record": {"spans": []}}, {"record": {}}):
+        assert read(bundle) is None
+    m = {m["name"]: m for m in spec.benchmark_file()["per_layer"]}[
+        "env_graph_share.train"]
+    assert (m["source"], m["better"], m["moves"], m["unit"],
+            m["workloads"]) == ("program_span", "higher", "train_steps_per_s",
+                                "%", ["go1_rough.train",
+                                      "anymal_c_rough.train"])
