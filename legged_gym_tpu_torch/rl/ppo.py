@@ -41,7 +41,11 @@ PyTorch idiom: the policy is an ``nn.Module`` updated in place by
 autograd; the rollout runs under ``torch.no_grad()`` (not inference mode:
 its tensors feed the update); the learning rate and every metric stay on
 the device, so an iteration makes no device-to-host read — the runner
-fetches the metrics once per iteration.
+fetches the metrics once per iteration. On a card with no mesh the
+recurrent loss's unroll (``bptt``, 24 steps of two LSTMs and heads, a few
+thousand small ops forward and backward) is replayed as CUDA graphs
+(``torch.cuda.make_graphed_callables``), so the update's time is the
+card's and not the host's dispatch.
 """
 from __future__ import annotations
 
@@ -175,25 +179,54 @@ def compute_gae(reward, value, not_done, last_value, gamma, lam):
     return adv
 
 
-def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None):
+def bptt(model, obs, cobs, done, mem_a0, mem_c0):
+    """The recurrent loss's unroll: both LSTMs and heads over the window
+    (T, N, ...) from the window-start carries ``mem_a0`` / ``mem_c0``,
+    each carry zeroed after the step where its episode ended. Returns
+    (action means (T, N, A), values (T, N))."""
+    ma, mc = mem_a0, mem_c0
+    means, values = [], []
+    for t in range(obs.shape[0]):
+        mean_t, ma = nets.actor_mean_rnn(model, obs[t], ma)
+        value_t, mc = nets.critic_value_rnn(model, cobs[t], mc)
+        keep = (1.0 - done[t])[:, None, None, None]
+        ma, mc = ma * keep, mc * keep
+        means.append(mean_t)
+        values.append(value_t)
+    return torch.stack(means), torch.stack(values)
+
+
+class Unroll(torch.nn.Module):
+    """``bptt`` as a module over the model's LSTMs and heads (its
+    parameters are the model's but for the std): the form
+    ``torch.cuda.make_graphed_callables`` captures, forward and
+    backward."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.memory_a, self.memory_c = model.memory_a, model.memory_c
+        self.actor, self.critic = model.actor, model.critic
+
+    def forward(self, obs, cobs, done, mem_a0, mem_c0):
+        return bptt(self, obs, cobs, done, mem_a0, mem_c0)
+
+
+def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None,
+             unroll=None):
     """(loss, (surrogate, value_loss, kl)) of one minibatch. Recurrent: the
     minibatch is time-major (T, N_mb, ...) with the window-start carries
-    ``mem_a0`` / ``mem_c0``, and the LSTMs run over the window from them,
-    zeroed where an episode ended. ``size``: the count the mean-reduced
-    terms' sums divide by (default: the minibatch's own samples); a rank's
-    part of a split minibatch divides by the whole minibatch's."""
+    ``mem_a0`` / ``mem_c0``, and ``unroll`` (default ``bptt`` on
+    ``model``; the update passes its graphed ``Unroll`` on a card) runs
+    the LSTMs over the window from them, zeroed where an episode ended
+    (the span ``ppo.bptt``). ``size``: the count the mean-reduced terms'
+    sums divide by (default: the minibatch's own samples); a rank's part
+    of a split minibatch divides by the whole minibatch's."""
     cobs = mb["cobs"] if asym else mb["obs"]
     if recurrent:
-        ma, mc = mb["mem_a0"], mb["mem_c0"]
-        means, values = [], []
-        for t in range(mb["obs"].shape[0]):
-            mean_t, ma = nets.actor_mean_rnn(model, mb["obs"][t], ma)
-            value_t, mc = nets.critic_value_rnn(model, cobs[t], mc)
-            keep = (1.0 - mb["done"][t])[:, None, None, None]
-            ma, mc = ma * keep, mc * keep
-            means.append(mean_t)
-            values.append(value_t)
-        act_mean, value = torch.stack(means), torch.stack(values)
+        with profiling.span("ppo.bptt"):
+            args = (mb["obs"], cobs, mb["done"], mb["mem_a0"], mb["mem_c0"])
+            act_mean, value = (bptt(model, *args) if unroll is None
+                               else unroll(*args))
     else:
         act_mean = nets.actor_mean(model, mb["obs"])
         value = nets.critic_value(model, cobs)
@@ -255,7 +288,9 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     clock) and the summary of the spans the iteration opened
     (``utils.profiling.Recording.summary``: ``env.*``, ``terrain.refresh``,
     ``actuator.sea``, ``kernel.chain_step``, ``ppo.act`` per rollout step,
-    ``ppo.minibatch`` per minibatch step).
+    ``ppo.minibatch`` per minibatch step and, for a recurrent policy,
+    ``ppo.bptt`` inside it: the loss's unroll of both LSTMs and heads over
+    the window).
     """
     opt = make_optimizer(alg_cfg)
     n_mb = alg_cfg.num_mini_batches
@@ -300,6 +335,28 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                             + [len(scalars)])
         return ([p.view_as(g) for p, g in zip(parts, grads)],
                 parts[-1].unbind())
+
+    graphs = {}
+
+    def unroll_for(model, mb):
+        """The unroll the recurrent loss runs: on a card with no mesh
+        ``Unroll`` as CUDA graphs, its forward and its backward replayed
+        from static buffers (captured at the first minibatch step of each
+        minibatch shape: the minibatch steps then dispatch a few hundred
+        ops where the eager unroll dispatches thousands); else None, the
+        eager ``bptt``."""
+        if (not recurrent or mesh is not None
+                or mb["obs"].device.type != "cuda"):
+            return None
+        args = (mb["obs"], mb["cobs"] if asym else mb["obs"], mb["done"],
+                mb["mem_a0"], mb["mem_c0"])
+        key = tuple(a.shape for a in args)
+        if graphs.get("model") is not model or graphs.get("key") != key:
+            graphs.clear()
+            graphs.update(model=model, key=key,
+                          unroll=torch.cuda.make_graphed_callables(
+                              Unroll(model), args))
+        return graphs["unroll"]
 
     def clock(device):
         if learn_iteration.profile and device.type == "cuda":
@@ -440,7 +497,8 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                     else:
                         mb = {k: v[idx] for k, v in flat.items()}
                     loss, (s_loss, v_loss, kl) = ppo_loss(
-                        model, mb, alg_cfg, recurrent, asym, size)
+                        model, mb, alg_cfg, recurrent, asym, size,
+                        unroll=unroll_for(model, mb))
                     grads = list(torch.autograd.grad(loss, params))
                     with torch.no_grad():
                         grads, (loss, s_loss, v_loss, kl) = summed(

@@ -145,7 +145,8 @@ def span_table(times):
     """The lines of the span table of ``times`` (``learn_fn.times``
     with ``profile`` on): per env step each span's count, total and self
     ms, summed over the iterations; per call the host us of a
-    ``kernel.chain_step`` launch and the ms of a ``ppo.minibatch`` step."""
+    ``kernel.chain_step`` launch and the ms of a ``ppo.minibatch`` step
+    and of its ``ppo.bptt`` unroll."""
     sums = {}
     for t in times:
         for name, s in t["spans"].items():
@@ -156,7 +157,8 @@ def span_table(times):
     steps = sums.get("env.step", [0])[0]
     if not steps:
         return ["no env step was recorded"]
-    per_call = {"kernel.chain_step": (1e6, "us"), "ppo.minibatch": (1e3, "ms")}
+    per_call = {"kernel.chain_step": (1e6, "us"), "ppo.minibatch": (1e3, "ms"),
+                "ppo.bptt": (1e3, "ms")}
     lines = [f"spans over {steps} env steps (profiler off):",
              f"  {'span':<18} {'n/step':>7} {'total ms/step':>14} "
              f"{'self ms/step':>13}  per call"]

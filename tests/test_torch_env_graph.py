@@ -210,4 +210,5 @@ def test_env_graph_share_reads_nothing_without_summaries():
     assert (m["source"], m["better"], m["moves"], m["unit"],
             m["workloads"]) == ("program_span", "higher", "train_steps_per_s",
                                 "%", ["go1_rough.train",
-                                      "anymal_c_rough.train"])
+                                      "anymal_c_rough.train",
+                                      "go1_rough_lstm.train"])
