@@ -42,10 +42,14 @@ autograd; the rollout runs under ``torch.no_grad()`` (not inference mode:
 its tensors feed the update); the learning rate and every metric stay on
 the device, so an iteration makes no device-to-host read — the runner
 fetches the metrics once per iteration. On a card with no mesh the
-recurrent loss's unroll (``bptt``, 24 steps of two LSTMs and heads, a few
-thousand small ops forward and backward) is replayed as CUDA graphs
-(``torch.cuda.make_graphed_callables``), so the update's time is the
-card's and not the host's dispatch.
+update's time is the card's and not the host's dispatch: a feed-forward
+policy's whole minibatch step (gather, loss, backward, clip, adaptive lr,
+Adam; ``minibatch_step``) replays as one CUDA graph (``UpdateGraph``), and
+the recurrent loss's unroll (``bptt``, 24 steps of two LSTMs and heads, a
+few thousand small ops forward and backward) as CUDA graphs
+(``torch.cuda.make_graphed_callables``). GAE, the permutation and the
+metrics stay eager, once per iteration; so do the CPU, the split over
+ranks and the recurrent step's rest.
 """
 from __future__ import annotations
 
@@ -92,6 +96,36 @@ class TrainState:
         return list(self.model.parameters())
 
 
+def bias_corrections(count):
+    """Adam's bias corrections (bc1, bc2) after ``count`` steps, in float32
+    as optax computes them (host floats)."""
+    return (float(np.float32(1.0) - np.float32(ADAM_B1) ** count),
+            float(np.float32(1.0) - np.float32(ADAM_B2) ** count))
+
+
+def bias_correction_table(count, steps):
+    """(steps, 2, 2) float32, a row per step after ``count``: for each of
+    Adam's bias corrections (``bias_corrections``) the correction and its
+    float32 reciprocal (the replayed update's table of an iteration)."""
+    bc = np.array([bias_corrections(c)
+                   for c in range(count + 1, count + steps + 1)],
+                  dtype=np.float32)
+    return np.stack([bc, np.float32(1.0) / bc], axis=-1)
+
+
+def unbias(moments, bc):
+    """``torch._foreach_div(moments, bc)`` for a host float ``bc``. For
+    ``bc`` a device tensor [correction, its float32 reciprocal] (a row of
+    ``bias_correction_table``), the bits the host float gives on the
+    moments' device: a card's kernels divide by a host scalar as a
+    multiplication by its float32 reciprocal, the CPU's divide."""
+    if not isinstance(bc, torch.Tensor):
+        return torch._foreach_div(moments, bc)
+    if bc.device.type == "cuda":
+        return torch._foreach_mul(moments, bc[1])
+    return torch._foreach_div(moments, bc[0])
+
+
 class Optimizer:
     """optax.chain(clip_by_global_norm(max_norm), scale_by_adam()): turns
     gradients into update directions ``u``; the caller applies -lr * u."""
@@ -107,6 +141,14 @@ class Optimizer:
     def update(self, grads, state: AdamState):
         """Clips ``grads`` (in place), advances ``state`` (in place) and
         returns the list of update directions."""
+        state.count += 1
+        return self.directions(grads, state, *bias_corrections(state.count))
+
+    def directions(self, grads, state: AdamState, bc1, bc2):
+        """``update`` with the step count advanced by the caller and its
+        bias corrections given: host floats, or rows of
+        ``bias_correction_table`` on the device (a replayed step reads them
+        from a buffer), applied with the same bits (``unbias``)."""
         # optax.clip_by_global_norm: untouched below the threshold, scaled
         # to exactly max_norm at or above it
         g_norm = torch.linalg.vector_norm(
@@ -116,18 +158,14 @@ class Optimizer:
                              self.max_grad_norm / g_norm)
         torch._foreach_mul_(grads, [factor] * len(grads))
         # optax.scale_by_adam
-        state.count += 1
         torch._foreach_mul_(state.mu, ADAM_B1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - ADAM_B1)
         torch._foreach_mul_(state.nu, ADAM_B2)
         torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - ADAM_B2)
-        # bias corrections in float32, as optax computes them
-        bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** state.count)
-        bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** state.count)
-        denom = torch._foreach_div(state.nu, bc2)
+        denom = unbias(state.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
-        updates = torch._foreach_div(state.mu, bc1)
+        updates = unbias(state.mu, bc1)
         torch._foreach_div_(updates, denom)
         return updates
 
@@ -258,6 +296,145 @@ def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None,
     return loss, (surrogate.detach(), v_loss.detach(), kl)
 
 
+def minibatch_step(ts, mb, lr, bc, alg_cfg, recurrent=False, asym=False,
+                   size=None, unroll=None, summed=None):
+    """One minibatch step of the update on the minibatch ``mb``: the loss
+    (``ppo_loss``), its gradients, their sum over ranks (``summed``, the
+    update's; None in one process), the adaptive lr from this minibatch's
+    KL, the clip and Adam with this step's bias corrections ``bc`` =
+    (bc1, bc2), then -lr x the directions added to the parameters. The
+    parameters and Adam's moments change in place; the step count is the
+    caller's. Returns (the stats row [loss, surrogate, value loss, KL],
+    the new lr)."""
+    params = ts.params
+    loss, (s_loss, v_loss, kl) = ppo_loss(ts.model, mb, alg_cfg, recurrent,
+                                          asym, size, unroll=unroll)
+    grads = list(torch.autograd.grad(loss, params))
+    with torch.no_grad():
+        loss = loss.detach()
+        if summed is not None:
+            grads, (loss, s_loss, v_loss, kl) = summed(
+                grads, [loss, s_loss, v_loss, kl])
+        if alg_cfg.schedule == "adaptive" and alg_cfg.desired_kl > 0:
+            lr = torch.where(kl > alg_cfg.desired_kl * 2.0,
+                             torch.clamp_min(lr * INV_1_5, LR_MIN), lr)
+            lr = torch.where((kl < alg_cfg.desired_kl / 2.0) & (kl > 0.0),
+                             torch.clamp_max(lr * 1.5, LR_MAX), lr)
+        updates = make_optimizer(alg_cfg).directions(grads, ts.opt_state,
+                                                     *bc)
+        torch._foreach_mul_(updates, [-lr] * len(updates))
+        torch._foreach_add_(params, updates)
+        return torch.stack([loss, s_loss, v_loss, kl]), lr
+
+
+def graph_update(device, mesh, recurrent):
+    """Whether the update replays its minibatch step as one CUDA graph
+    (``UpdateGraph``): on a card, with the env axis whole (split over
+    ranks, the step's gradients are an all-reduce) and a feed-forward
+    policy (the recurrent step replays its unroll's graphs instead, and is
+    bound by the card)."""
+    return device.type == "cuda" and mesh is None and not recurrent
+
+
+class UpdateGraph:
+    """The feed-forward update's minibatch step (``minibatch_step``) as one
+    CUDA graph over static buffers, replayed once per minibatch step.
+
+    - Inputs: ``stage`` copies, once per iteration, the flattened batch,
+      the lr and the iteration's table of bias corrections (a row per step,
+      ``bias_correction_table``) in; the table goes from a fresh block of
+      pinned host memory with no wait for the card, and the block is not
+      reused before the card has read it. Each step copies its minibatch's
+      row indices and its row of the table in.
+    - Capture: the first step runs eagerly on the capture stream as the
+      real step (kernels loaded, workspaces made), then is captured; no
+      step is applied twice or skipped.
+    - State: the replays update the train state's own parameters and
+      moments in place (``fits``: another model or other storages need
+      another graph) and carry the lr in a buffer from step to step. Each
+      step hands out its stats row as a fresh tensor and the update takes
+      a copy of the lr (``lr_now``), so nothing handed out aliases a
+      buffer that a later replay or ``stage`` overwrites."""
+
+    def __init__(self, ts, flat, mb_size, alg_cfg, asym):
+        self.ts, self.alg_cfg, self.asym = ts, alg_cfg, asym
+        self.key = self._key(ts, flat, mb_size)
+        device = flat["obs"].device
+        self.flat = {k: torch.empty_like(v) for k, v in flat.items()}
+        self.idx = torch.empty(mb_size, dtype=torch.long, device=device)
+        self.bc = torch.empty((2, 2), dtype=torch.float32, device=device)
+        self.lr_now = torch.empty((), dtype=torch.float32, device=device)
+        self.table = None
+        self.graph = None
+        self.row = None
+
+    @staticmethod
+    def _key(ts, flat, mb_size):
+        # the tensors are held in the key, so no storage is freed and
+        # handed to another tensor while the graph writes to it
+        state = ts.params + ts.opt_state.mu + ts.opt_state.nu
+        return (ts.model, tuple(state), tuple(t.data_ptr() for t in state),
+                tuple((k, v.shape, v.dtype) for k, v in flat.items()),
+                mb_size)
+
+    def fits(self, ts, flat, mb_size):
+        """Whether this graph runs the step of ``ts`` on ``flat``."""
+        key = self._key(ts, flat, mb_size)
+        return (key[0] is self.key[0]
+                and all(a is b for a, b in zip(key[1], self.key[1]))
+                and key[2:] == self.key[2:])
+
+    def stage(self, flat, lr, count, steps):
+        """The iteration's inputs: the flattened batch, the lr, and the
+        bias corrections of the ``steps`` steps after ``count``."""
+        torch._foreach_copy_(list(self.flat.values()),
+                             [flat[k] for k in self.flat])
+        self.lr_now.copy_(lr)
+        table = torch.from_numpy(bias_correction_table(count, steps))
+        if self.bc.device.type == "cuda":
+            table = table.pin_memory()
+        self.table = table.to(self.bc.device, non_blocking=True)
+
+    def _load(self, k, idx):
+        self.idx.copy_(idx)
+        self.bc.copy_(self.table[k])
+
+    def body(self):
+        """The step on the static buffers (what the graph holds)."""
+        mb = {k: v[self.idx] for k, v in self.flat.items()}
+        self.row, lr = minibatch_step(self.ts, mb, self.lr_now,
+                                      (self.bc[0], self.bc[1]),
+                                      self.alg_cfg, asym=self.asym,
+                                      size=self.idx.numel())
+        if lr is not self.lr_now:
+            self.lr_now.copy_(lr)
+
+    def capture(self, k, idx):
+        """Step ``k`` of the iteration on the minibatch rows ``idx``, run
+        eagerly on the capture stream, then captured. Returns its stats
+        row."""
+        self._load(k, idx)
+        here = torch.cuda.current_stream(self.bc.device)
+        stream = torch.cuda.Stream(self.bc.device)
+        stream.wait_stream(here)
+        with torch.cuda.stream(stream):
+            self.body()
+        here.wait_stream(stream)
+        row = self.row.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            self.body()
+        self.graph = graph
+        return row
+
+    def replay(self, k, idx):
+        """Step ``k`` on the rows ``idx`` as a replay. Returns its stats
+        row."""
+        self._load(k, idx)
+        self.graph.replay()
+        return self.row.clone()
+
+
 def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     """Returns ``learn_iteration(train_state, env_state, obs, noise=None,
     perm=None)`` -> (train_state, env_state, obs, metrics): ``num_steps``
@@ -288,15 +465,14 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     clock) and the summary of the spans the iteration opened
     (``utils.profiling.Recording.summary``: ``env.*``, ``terrain.refresh``,
     ``actuator.sea``, ``kernel.chain_step``, ``ppo.act`` per rollout step,
-    ``ppo.minibatch`` per minibatch step and, for a recurrent policy,
-    ``ppo.bptt`` inside it: the loss's unroll of both LSTMs and heads over
-    the window).
+    ``ppo.minibatch`` per minibatch step and inside it ``ppo.graph`` where
+    the step replays its CUDA graph or, for a recurrent policy,
+    ``ppo.bptt``: the loss's unroll of both LSTMs and heads over the
+    window).
     """
-    opt = make_optimizer(alg_cfg)
     n_mb = alg_cfg.num_mini_batches
     n_ep = alg_cfg.num_learning_epochs
     gamma, lam = alg_cfg.gamma, alg_cfg.lam
-    adaptive = alg_cfg.schedule == "adaptive" and alg_cfg.desired_kl > 0
     recurrent = nets.is_recurrent(policy_cfg)
     # asymmetric critic (rsl_rl's critic_obs routing, on_policy_runner.py)
     asym = getattr(env, "num_privileged_obs", None) is not None
@@ -337,6 +513,7 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                 parts[-1].unbind())
 
     graphs = {}
+    step_graph = {}            # the feed-forward step's UpdateGraph
 
     def unroll_for(model, mb):
         """The unroll the recurrent loss runs: on a card with no mesh
@@ -484,38 +661,38 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
             size = mb_size * (t_len if recurrent else 1)
 
         # ---- update: epochs reuse the permutation ----
-        params = ts.params
         lr = ts.lr
+        steps = n_ep * n_mb
+        graph = None
+        if graph_update(device, mesh, recurrent):
+            graph = step_graph.get("graph")
+            if graph is None or not graph.fits(ts, flat, mb_size):
+                graph = step_graph["graph"] = UpdateGraph(
+                    ts, flat, mb_size, alg_cfg, asym)
+            graph.stage(flat, lr, ts.opt_state.count, steps)
         stats = []
-        for _ in range(n_ep):
-            for idx in mb_idx:
-                with profiling.span("ppo.minibatch"):
+        for step in range(steps):
+            idx = mb_idx[step % n_mb]
+            with profiling.span("ppo.minibatch"):
+                ts.opt_state.count += 1
+                if graph is None:
                     if recurrent:
                         mb = {k: v[:, idx] for k, v in flat.items()}
                         mb["mem_a0"] = mem_start["a"][idx]
                         mb["mem_c0"] = mem_start["c"][idx]
                     else:
                         mb = {k: v[idx] for k, v in flat.items()}
-                    loss, (s_loss, v_loss, kl) = ppo_loss(
-                        model, mb, alg_cfg, recurrent, asym, size,
-                        unroll=unroll_for(model, mb))
-                    grads = list(torch.autograd.grad(loss, params))
-                    with torch.no_grad():
-                        grads, (loss, s_loss, v_loss, kl) = summed(
-                            grads, [loss.detach(), s_loss, v_loss, kl])
-                        if adaptive:
-                            lr = torch.where(kl > alg_cfg.desired_kl * 2.0,
-                                             torch.clamp_min(lr * INV_1_5,
-                                                             LR_MIN), lr)
-                            lr = torch.where(
-                                (kl < alg_cfg.desired_kl / 2.0) & (kl > 0.0),
-                                torch.clamp_max(lr * 1.5, LR_MAX), lr)
-                        updates = opt.update(grads, ts.opt_state)
-                        torch._foreach_mul_(updates, [-lr] * len(updates))
-                        torch._foreach_add_(params, updates)
-                    stats.append(torch.stack([loss.detach(), s_loss, v_loss,
-                                              kl]))
-        ts.lr = lr
+                    row, lr = minibatch_step(
+                        ts, mb, lr, bias_corrections(ts.opt_state.count),
+                        alg_cfg, recurrent, asym, size,
+                        unroll=unroll_for(model, mb), summed=summed)
+                elif graph.graph is None:
+                    row = graph.capture(step, idx)
+                else:
+                    with profiling.span("ppo.graph"):
+                        row = graph.replay(step, idx)
+            stats.append(row)
+        ts.lr = lr if graph is None else graph.lr_now.clone()
 
         with torch.no_grad():
             stats = torch.stack(stats)                     # (n_ep*n_mb, 4)
@@ -532,7 +709,7 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                 "kl": mean_stats[3],
                 "kl_max": stats[:, 3].max(),
                 "noise_std": model.std.detach().mean(),
-                "lr": lr,
+                "lr": ts.lr,
                 "mean_step_reward": mean_reward,
                 "episode_count": ep_count,
                 "mean_episode_length": batch["ep_len_sum"].sum() / denom,
