@@ -54,7 +54,6 @@ import numpy as np
 import torch
 
 from legged_gym_tpu_torch import assets
-from legged_gym_tpu_torch.envs.tail_graph import TailGraphs
 from legged_gym_tpu_torch.model.robot import compile_model
 from legged_gym_tpu_torch.ops import quat as quat_ops
 from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_env_state
@@ -72,7 +71,7 @@ from legged_gym_tpu_torch.terrain.heightfield import (PatchExtractor,
                                                       patch_sample_min3,
                                                       sample_bilinear)
 from legged_gym_tpu_torch.terrain.terrain import Terrain, TerrainGrid
-from legged_gym_tpu_torch.utils import profiling
+from legged_gym_tpu_torch.utils import cuda_graph, profiling
 
 # the EnvState fields the post-physics tail reads
 _TAIL_STATE = ("episode_length", "commands", "lin_vel_x_range",
@@ -778,12 +777,11 @@ class LeggedEnv:
                     and common_step % self.max_episode_length == 0)
 
     def _graph_step(self, common_step, actions):
-        """Whether this step's tail may replay the CUDA graphs: on a card,
-        with the env axis whole (split over ranks, the finished envs'
-        statistics are an all-reduce), on a step that neither pushes nor
-        runs the command curriculum (host branches the graphs leave out),
-        with no gradient asked of the actions."""
-        return (self.device.type == "cuda" and self.mesh is None
+        """Whether this step's tail may replay the CUDA graphs: where
+        graphs apply (``cuda_graph.applies``), on a step that neither
+        pushes nor runs the command curriculum (host branches the graphs
+        leave out), with no gradient asked of the actions."""
+        return (cuda_graph.applies(self.device, self.mesh)
                 and not self._push_step(common_step)
                 and not self._curriculum_step(common_step)
                 and not (actions.requires_grad and torch.is_grad_enabled()))
@@ -792,37 +790,37 @@ class LeggedEnv:
         """Everything after the physics: rewards, the masked reset and the
         observations (``_tail_rewards``, ``_tail_reset``, ``_tail_obs``),
         each in its span. Run eagerly, or on the steps ``_graph_step``
-        allows as replays of their CUDA graphs (envs/tail_graph.py), which
-        the first such step captures after running them eagerly, and any
-        such step whose inputs no longer fit the captured ones. Returns
-        (new state, transition)."""
+        allows as replays of their CUDA graphs (``utils.cuda_graph``),
+        which the first such step captures, and any such step whose inputs
+        no longer fit the captured ones. Returns (new state,
+        transition)."""
         graph = self._graph_step(common_step, actions)
-        graphs = self._graphs
-        leaves = None
-        if graph and graphs is not None:
-            leaves = graphs.match(x, self.generator)
-        if leaves is not None:
+        graphs, inputs = self._graphs, {"x": x}
+        if graph and graphs is not None and graphs.fits(inputs,
+                                                        self.generator):
             with profiling.span("env.graph"):
                 with profiling.span("env.rewards"):
-                    graphs.stage(leaves)
+                    graphs.stage()
                     graphs.replay(0)
                 with profiling.span("env.reset"):
                     graphs.replay(1)
                 with profiling.span("env.obs"):
                     graphs.replay(2)
-                    return self._outputs(graphs.outputs(leaves),
-                                         common_step)
+                    return self._outputs(graphs.outputs(), common_step)
         sections = [functools.partial(f, common_step) for f in (
             self._tail_rewards, self._tail_reset, self._tail_obs)]
+        if graph:
+            graphs = cuda_graph.Graphs(sections, inputs, self.generator)
+            graphs.stage()
+            graphs.capture(spans=("env.rewards", "env.reset", "env.obs"))
+            self._graphs = graphs
+            return self._outputs(graphs.outputs(), common_step)
         with profiling.span("env.rewards"):
             v = {**x, **sections[0](x)}
         with profiling.span("env.reset"):
             v = {**v, **sections[1](v)}
         with profiling.span("env.obs"):
-            out = self._outputs(sections[2](v), common_step)
-        if graph:
-            self._graphs = TailGraphs(sections, x, self.generator)
-        return out
+            return self._outputs(sections[2](v), common_step)
 
     def _tail_rewards(self, common_step, v):
         """Bookkeeping, height scan, pushes, termination and the reward

@@ -41,15 +41,14 @@ PyTorch idiom: the policy is an ``nn.Module`` updated in place by
 autograd; the rollout runs under ``torch.no_grad()`` (not inference mode:
 its tensors feed the update); the learning rate and every metric stay on
 the device, so an iteration makes no device-to-host read — the runner
-fetches the metrics once per iteration. On a card with no mesh the
-update's time is the card's and not the host's dispatch: a feed-forward
-policy's whole minibatch step (gather, loss, backward, clip, adaptive lr,
-Adam; ``minibatch_step``) replays as one CUDA graph (``UpdateGraph``), and
-the recurrent loss's unroll (``bptt``, 24 steps of two LSTMs and heads, a
-few thousand small ops forward and backward) as CUDA graphs
-(``torch.cuda.make_graphed_callables``). GAE, the permutation and the
-metrics stay eager, once per iteration; so do the CPU, the split over
-ranks and the recurrent step's rest.
+fetches the metrics once per iteration. Where CUDA graphs apply
+(``utils.cuda_graph``: a card, no mesh) the update's time is the card's
+and not the host's dispatch: the whole minibatch step (gather, loss with
+the recurrent unroll, backward, clip, adaptive lr, Adam;
+``minibatch_step``) replays as one CUDA graph, for a feed-forward and a
+recurrent policy alike. GAE, the permutation and the metrics stay eager,
+once per iteration, and so does the whole update on the CPU and split
+over ranks.
 """
 from __future__ import annotations
 
@@ -62,7 +61,7 @@ import torch
 
 from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_batch
 from legged_gym_tpu_torch.rl import networks as nets
-from legged_gym_tpu_torch.utils import profiling
+from legged_gym_tpu_torch.utils import cuda_graph, profiling
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LR_MIN, LR_MAX = 1e-5, 1e-2
@@ -234,37 +233,19 @@ def bptt(model, obs, cobs, done, mem_a0, mem_c0):
     return torch.stack(means), torch.stack(values)
 
 
-class Unroll(torch.nn.Module):
-    """``bptt`` as a module over the model's LSTMs and heads (its
-    parameters are the model's but for the std): the form
-    ``torch.cuda.make_graphed_callables`` captures, forward and
-    backward."""
-
-    def __init__(self, model):
-        super().__init__()
-        self.memory_a, self.memory_c = model.memory_a, model.memory_c
-        self.actor, self.critic = model.actor, model.critic
-
-    def forward(self, obs, cobs, done, mem_a0, mem_c0):
-        return bptt(self, obs, cobs, done, mem_a0, mem_c0)
-
-
-def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None,
-             unroll=None):
+def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None):
     """(loss, (surrogate, value_loss, kl)) of one minibatch. Recurrent: the
     minibatch is time-major (T, N_mb, ...) with the window-start carries
-    ``mem_a0`` / ``mem_c0``, and ``unroll`` (default ``bptt`` on
-    ``model``; the update passes its graphed ``Unroll`` on a card) runs
-    the LSTMs over the window from them, zeroed where an episode ended
-    (the span ``ppo.bptt``). ``size``: the count the mean-reduced terms'
-    sums divide by (default: the minibatch's own samples); a rank's part
-    of a split minibatch divides by the whole minibatch's."""
+    ``mem_a0`` / ``mem_c0``, and ``bptt`` runs the LSTMs over the window
+    from them, zeroed where an episode ended (the span ``ppo.bptt``, on
+    the eager runs). ``size``: the count the mean-reduced terms' sums
+    divide by (default: the minibatch's own samples); a rank's part of a
+    split minibatch divides by the whole minibatch's."""
     cobs = mb["cobs"] if asym else mb["obs"]
     if recurrent:
         with profiling.span("ppo.bptt"):
-            args = (mb["obs"], cobs, mb["done"], mb["mem_a0"], mb["mem_c0"])
-            act_mean, value = (bptt(model, *args) if unroll is None
-                               else unroll(*args))
+            act_mean, value = bptt(model, mb["obs"], cobs, mb["done"],
+                                   mb["mem_a0"], mb["mem_c0"])
     else:
         act_mean = nets.actor_mean(model, mb["obs"])
         value = nets.critic_value(model, cobs)
@@ -297,7 +278,7 @@ def ppo_loss(model, mb, alg_cfg, recurrent=False, asym=False, size=None,
 
 
 def minibatch_step(ts, mb, lr, bc, alg_cfg, recurrent=False, asym=False,
-                   size=None, unroll=None, summed=None):
+                   size=None, summed=None):
     """One minibatch step of the update on the minibatch ``mb``: the loss
     (``ppo_loss``), its gradients, their sum over ranks (``summed``, the
     update's; None in one process), the adaptive lr from this minibatch's
@@ -308,7 +289,7 @@ def minibatch_step(ts, mb, lr, bc, alg_cfg, recurrent=False, asym=False,
     the new lr)."""
     params = ts.params
     loss, (s_loss, v_loss, kl) = ppo_loss(ts.model, mb, alg_cfg, recurrent,
-                                          asym, size, unroll=unroll)
+                                          asym, size)
     grads = list(torch.autograd.grad(loss, params))
     with torch.no_grad():
         loss = loss.detach()
@@ -327,112 +308,17 @@ def minibatch_step(ts, mb, lr, bc, alg_cfg, recurrent=False, asym=False,
         return torch.stack([loss, s_loss, v_loss, kl]), lr
 
 
-def graph_update(device, mesh, recurrent):
-    """Whether the update replays its minibatch step as one CUDA graph
-    (``UpdateGraph``): on a card, with the env axis whole (split over
-    ranks, the step's gradients are an all-reduce) and a feed-forward
-    policy (the recurrent step replays its unroll's graphs instead, and is
-    bound by the card)."""
-    return device.type == "cuda" and mesh is None and not recurrent
-
-
-class UpdateGraph:
-    """The feed-forward update's minibatch step (``minibatch_step``) as one
-    CUDA graph over static buffers, replayed once per minibatch step.
-
-    - Inputs: ``stage`` copies, once per iteration, the flattened batch,
-      the lr and the iteration's table of bias corrections (a row per step,
-      ``bias_correction_table``) in; the table goes from a fresh block of
-      pinned host memory with no wait for the card, and the block is not
-      reused before the card has read it. Each step copies its minibatch's
-      row indices and its row of the table in.
-    - Capture: the first step runs eagerly on the capture stream as the
-      real step (kernels loaded, workspaces made), then is captured; no
-      step is applied twice or skipped.
-    - State: the replays update the train state's own parameters and
-      moments in place (``fits``: another model or other storages need
-      another graph) and carry the lr in a buffer from step to step. Each
-      step hands out its stats row as a fresh tensor and the update takes
-      a copy of the lr (``lr_now``), so nothing handed out aliases a
-      buffer that a later replay or ``stage`` overwrites."""
-
-    def __init__(self, ts, flat, mb_size, alg_cfg, asym):
-        self.ts, self.alg_cfg, self.asym = ts, alg_cfg, asym
-        self.key = self._key(ts, flat, mb_size)
-        device = flat["obs"].device
-        self.flat = {k: torch.empty_like(v) for k, v in flat.items()}
-        self.idx = torch.empty(mb_size, dtype=torch.long, device=device)
-        self.bc = torch.empty((2, 2), dtype=torch.float32, device=device)
-        self.lr_now = torch.empty((), dtype=torch.float32, device=device)
-        self.table = None
-        self.graph = None
-        self.row = None
-
-    @staticmethod
-    def _key(ts, flat, mb_size):
-        # the tensors are held in the key, so no storage is freed and
-        # handed to another tensor while the graph writes to it
-        state = ts.params + ts.opt_state.mu + ts.opt_state.nu
-        return (ts.model, tuple(state), tuple(t.data_ptr() for t in state),
-                tuple((k, v.shape, v.dtype) for k, v in flat.items()),
-                mb_size)
-
-    def fits(self, ts, flat, mb_size):
-        """Whether this graph runs the step of ``ts`` on ``flat``."""
-        key = self._key(ts, flat, mb_size)
-        return (key[0] is self.key[0]
-                and all(a is b for a, b in zip(key[1], self.key[1]))
-                and key[2:] == self.key[2:])
-
-    def stage(self, flat, lr, count, steps):
-        """The iteration's inputs: the flattened batch, the lr, and the
-        bias corrections of the ``steps`` steps after ``count``."""
-        torch._foreach_copy_(list(self.flat.values()),
-                             [flat[k] for k in self.flat])
-        self.lr_now.copy_(lr)
-        table = torch.from_numpy(bias_correction_table(count, steps))
-        if self.bc.device.type == "cuda":
-            table = table.pin_memory()
-        self.table = table.to(self.bc.device, non_blocking=True)
-
-    def _load(self, k, idx):
-        self.idx.copy_(idx)
-        self.bc.copy_(self.table[k])
-
-    def body(self):
-        """The step on the static buffers (what the graph holds)."""
-        mb = {k: v[self.idx] for k, v in self.flat.items()}
-        self.row, lr = minibatch_step(self.ts, mb, self.lr_now,
-                                      (self.bc[0], self.bc[1]),
-                                      self.alg_cfg, asym=self.asym,
-                                      size=self.idx.numel())
-        if lr is not self.lr_now:
-            self.lr_now.copy_(lr)
-
-    def capture(self, k, idx):
-        """Step ``k`` of the iteration on the minibatch rows ``idx``, run
-        eagerly on the capture stream, then captured. Returns its stats
-        row."""
-        self._load(k, idx)
-        here = torch.cuda.current_stream(self.bc.device)
-        stream = torch.cuda.Stream(self.bc.device)
-        stream.wait_stream(here)
-        with torch.cuda.stream(stream):
-            self.body()
-        here.wait_stream(stream)
-        row = self.row.clone()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            self.body()
-        self.graph = graph
-        return row
-
-    def replay(self, k, idx):
-        """Step ``k`` on the rows ``idx`` as a replay. Returns its stats
-        row."""
-        self._load(k, idx)
-        self.graph.replay()
-        return self.row.clone()
+def minibatch(flat, idx, mem=None):
+    """The minibatch of rows ``idx`` of the update's batch ``flat``: the
+    flattened (T * N, ...) rows, or, for a recurrent policy (``mem``, the
+    window-start carries {"a", "c"} (N, ...)), the envs ``idx`` of the
+    time-major (T, N, ...) windows with their carries as ``mem_a0`` /
+    ``mem_c0``."""
+    if mem is None:
+        return {k: v[idx] for k, v in flat.items()}
+    mb = {k: v[:, idx] for k, v in flat.items()}
+    mb["mem_a0"], mb["mem_c0"] = mem["a"][idx], mem["c"][idx]
+    return mb
 
 
 def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
@@ -466,9 +352,9 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
     (``utils.profiling.Recording.summary``: ``env.*``, ``terrain.refresh``,
     ``actuator.sea``, ``kernel.chain_step``, ``ppo.act`` per rollout step,
     ``ppo.minibatch`` per minibatch step and inside it ``ppo.graph`` where
-    the step replays its CUDA graph or, for a recurrent policy,
-    ``ppo.bptt``: the loss's unroll of both LSTMs and heads over the
-    window).
+    the step replays its CUDA graph or, for a recurrent policy run
+    eagerly, ``ppo.bptt``: the loss's unroll of both LSTMs and heads over
+    the window).
     """
     n_mb = alg_cfg.num_mini_batches
     n_ep = alg_cfg.num_learning_epochs
@@ -512,28 +398,7 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         return ([p.view_as(g) for p, g in zip(parts, grads)],
                 parts[-1].unbind())
 
-    graphs = {}
-    step_graph = {}            # the feed-forward step's UpdateGraph
-
-    def unroll_for(model, mb):
-        """The unroll the recurrent loss runs: on a card with no mesh
-        ``Unroll`` as CUDA graphs, its forward and its backward replayed
-        from static buffers (captured at the first minibatch step of each
-        minibatch shape: the minibatch steps then dispatch a few hundred
-        ops where the eager unroll dispatches thousands); else None, the
-        eager ``bptt``."""
-        if (not recurrent or mesh is not None
-                or mb["obs"].device.type != "cuda"):
-            return None
-        args = (mb["obs"], mb["cobs"] if asym else mb["obs"], mb["done"],
-                mb["mem_a0"], mb["mem_c0"])
-        key = tuple(a.shape for a in args)
-        if graphs.get("model") is not model or graphs.get("key") != key:
-            graphs.clear()
-            graphs.update(model=model, key=key,
-                          unroll=torch.cuda.make_graphed_callables(
-                              Unroll(model), args))
-        return graphs["unroll"]
+    step_graph = {}            # the minibatch step's cuda_graph.Graphs
 
     def clock(device):
         if learn_iteration.profile and device.type == "cuda":
@@ -664,35 +529,52 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
         lr = ts.lr
         steps = n_ep * n_mb
         graph = None
-        if graph_update(device, mesh, recurrent):
+        if cuda_graph.applies(device, mesh):
+            # the iteration's bias corrections, a row per step, sent from
+            # a fresh block of pinned memory with no wait for the card
+            table = torch.from_numpy(bias_correction_table(
+                ts.opt_state.count, steps))
+            if device.type == "cuda":
+                table = table.pin_memory()
+            table = table.to(device, non_blocking=True)
+            inputs = {"batch": {"flat": flat, "mem": mem_start, "lr": lr},
+                      "step": {"idx": mb_idx[0], "bc": table[0]}}
+            held = ts.params + ts.opt_state.mu + ts.opt_state.nu
             graph = step_graph.get("graph")
-            if graph is None or not graph.fits(ts, flat, mb_size):
-                graph = step_graph["graph"] = UpdateGraph(
-                    ts, flat, mb_size, alg_cfg, asym)
-            graph.stage(flat, lr, ts.opt_state.count, steps)
+            if graph is None or not graph.fits(inputs, held=held):
+                def section(v):
+                    row, lr = minibatch_step(
+                        ts, minibatch(v["flat"], v["idx"], v["mem"]),
+                        v["lr"], (v["bc"][0], v["bc"][1]), alg_cfg,
+                        recurrent, asym, size)
+                    if lr is not v["lr"]:
+                        v["lr"].copy_(lr)          # the next step's lr
+                    return {"row": row, "lr": lr}
+
+                graph = step_graph["graph"] = cuda_graph.Graphs(
+                    [section], inputs, held=held)
+            graph.stage("batch")
         stats = []
         for step in range(steps):
             idx = mb_idx[step % n_mb]
             with profiling.span("ppo.minibatch"):
                 ts.opt_state.count += 1
                 if graph is None:
-                    if recurrent:
-                        mb = {k: v[:, idx] for k, v in flat.items()}
-                        mb["mem_a0"] = mem_start["a"][idx]
-                        mb["mem_c0"] = mem_start["c"][idx]
-                    else:
-                        mb = {k: v[idx] for k, v in flat.items()}
                     row, lr = minibatch_step(
-                        ts, mb, lr, bias_corrections(ts.opt_state.count),
-                        alg_cfg, recurrent, asym, size,
-                        unroll=unroll_for(model, mb), summed=summed)
-                elif graph.graph is None:
-                    row = graph.capture(step, idx)
+                        ts, minibatch(flat, idx, mem_start), lr,
+                        bias_corrections(ts.opt_state.count), alg_cfg,
+                        recurrent, asym, size, summed=summed)
                 else:
-                    with profiling.span("ppo.graph"):
-                        row = graph.replay(step, idx)
+                    graph.stage("step", {"idx": idx, "bc": table[step]})
+                    if graph.graphs is None:
+                        graph.capture()
+                    else:
+                        with profiling.span("ppo.graph"):
+                            graph.replay(0)
+                    out = graph.outputs()
+                    row, lr = out["row"], out["lr"]
             stats.append(row)
-        ts.lr = lr if graph is None else graph.lr_now.clone()
+        ts.lr = lr
 
         with torch.no_grad():
             stats = torch.stack(stats)                     # (n_ep*n_mb, 4)

@@ -1,18 +1,22 @@
 """The env step's post-physics tail replayed as CUDA graphs
-(envs/tail_graph.py, ``LeggedEnv._tail``).
+(``LeggedEnv._tail`` on the capture helper utils/cuda_graph.py).
 
 On the CPU: the selection rule runs the tail eagerly on a CPU device,
 with a mesh, on push and command-curriculum steps and when the actions
 ask for a gradient; a CPU env never captures; a state survives the
-flattening the graphs stage their inputs by.
+flattening the graphs stage their inputs by; the tail through the
+helper's capture, staging, replays (run eagerly where there are no CUDA
+graphs) and fresh outputs equals the eager tail to the bit over a run
+with pushes, curriculum steps and timeouts, and keeps no input past its
+step.
 
 On the card (marker ``cuda``, skipped without one): go1 and
 anymal_c_rough on rough trimesh at 512 envs over 44 steps, with pushes,
 terrain-window refreshes, command-curriculum steps and timeouts inside
 the run, against the same env forced eager: every step's transition, new
 state and generator state equal to the bit, the outputs of a step
-unchanged by the next, and the ``env.graph`` span counted once per step
-that replayed. No JAX here: the card runs this file with
+unchanged by the next, no input kept past its step, and the
+``env.graph`` span counted once per step that replayed. No JAX here: the card runs this file with
 ``--noconftest``.
 
 The benchmark's reader of ``env_graph_share.train``
@@ -21,13 +25,15 @@ the ``env.graph`` count over the ``env.step`` count x 100, and nothing
 without summaries or where the span never opened."""
 from __future__ import annotations
 
+import weakref
+
 import pytest
 import torch
 
 from benchmark import spec
 from legged_gym_tpu_torch import registry
-from legged_gym_tpu_torch.envs.tail_graph import flatten, unflatten
-from legged_gym_tpu_torch.utils import profiling
+from legged_gym_tpu_torch.utils import cuda_graph, profiling
+from legged_gym_tpu_torch.utils.cuda_graph import flatten, unflatten
 
 PUSH = 13          # policy steps between pushes
 EPISODE = 20       # policy steps of an episode: the command curriculum's
@@ -121,16 +127,24 @@ def _copy(x):
     return unflatten(spec, [t.clone() for t in leaves])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("task", ["go1", "anymal_c_rough"])
-def test_graphed_tail_equals_the_eager_tail_to_the_bit(task, monkeypatch):
-    _need_card()
-    graphed, _ = registry.make_env(cfg=_cfg(task, 512), seed=7,
-                                   device="cuda")
-    eager, _ = registry.make_env(cfg=_cfg(task, 512), seed=7,
-                                 device="cuda")
+def _graphed_against_eager(cfg, device, monkeypatch, steps=STEPS):
+    """``steps`` steps of two envs from one seed, one graphed where its
+    rule allows and one forced eager, compared step by step; no tail
+    input that the step does not hand on outlives the step. Returns the
+    kinds of steps seen, the count of steps that replayed and the span
+    summary."""
+    graphed, _ = registry.make_env(cfg=cfg, seed=7, device=device)
+    eager, _ = registry.make_env(cfg=cfg, seed=7, device=device)
     monkeypatch.setattr(eager, "_graph_step", lambda *args: False)
-    draws = torch.Generator(device="cuda")
+    contact_f = []
+    real_tail = graphed._tail
+
+    def tail(x, *args):
+        contact_f.append(weakref.ref(x["contact_f"]))
+        return real_tail(x, *args)
+
+    monkeypatch.setattr(graphed, "_tail", tail)
+    draws = torch.Generator(device=device)
     draws.manual_seed(11)
     replayed, kinds = 0, set()
     with torch.no_grad():
@@ -139,9 +153,9 @@ def test_graphed_tail_equals_the_eager_tail_to_the_bit(task, monkeypatch):
         assert torch.equal(obs_g, obs_e)
         kept = None
         with profiling.recording() as rec:
-            for _ in range(STEPS):
+            for _ in range(steps):
                 a = 0.5 * torch.randn((graphed.num_envs, graphed.num_actions),
-                                      generator=draws, device="cuda")
+                                      generator=draws, device=device)
                 step = s_g.common_step + 1
                 rule = graphed._graph_step(step, a)
                 if step % PUSH == 0:
@@ -165,12 +179,37 @@ def test_graphed_tail_equals_the_eager_tail_to_the_bit(task, monkeypatch):
                     assert _same(kept[0], kept[1]), step
                 kept = (out_g, _copy(out_g))
                 s_g, s_e = out_g[0], out_e[0]
-        torch.cuda.synchronize()
+                assert contact_f[-1]() is None, step
+    return kinds, replayed, rec.summary()
+
+
+def test_the_tail_through_the_helper_equals_the_eager_tail_on_the_cpu(
+        monkeypatch):
+    cfg = _cfg("go1", 4)
+    cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+    monkeypatch.setattr(cuda_graph, "applies", lambda *args: True)
+    kinds, replayed, spans = _graphed_against_eager(cfg, "cpu", monkeypatch,
+                                                    EPISODE + 4)
+    assert kinds == {"push", "curriculum", "refresh", "reset"}
+    # eager: 1 push, 1 curriculum step, and the steps that captured
+    assert replayed >= EPISODE + 4 - 1 - 1 - 2
+    assert spans["env.graph"]["n"] == replayed
+    # one span per section on every step, graphed or not
+    for name in ("env.rewards", "env.reset", "env.obs"):
+        assert spans[name]["n"] == 2 * (EPISODE + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["go1", "anymal_c_rough"])
+def test_graphed_tail_equals_the_eager_tail_to_the_bit(task, monkeypatch):
+    _need_card()
+    kinds, replayed, spans = _graphed_against_eager(_cfg(task, 512), "cuda",
+                                                    monkeypatch)
+    torch.cuda.synchronize()
     assert kinds == {"push", "curriculum", "refresh", "reset"}
     # eager: 3 pushes, 2 curriculum steps, and the steps that captured
     # (the reset's, whose inputs come from initial_state, and the next)
     assert replayed >= STEPS - 3 - 2 - 2
-    spans = rec.summary()
     assert spans["env.graph"]["n"] == replayed
     assert spans["env.step"]["n"] == 2 * STEPS
 

@@ -1,33 +1,39 @@
-"""The feed-forward update's minibatch step as one CUDA graph (rl/ppo.py:
-``minibatch_step``, ``UpdateGraph``, ``graph_update``).
+"""The PPO update's minibatch step as one CUDA graph (rl/ppo.py:
+``minibatch_step``, ``minibatch``; the capture helper
+utils/cuda_graph.py: ``applies``, ``Graphs``).
 
 On the CPU: the step as factored for capture (the static buffers, the
 bias corrections read from the iteration's table, the lr carried in a
-buffer), run eagerly in place of the capture and of each replay, gives
-the old inline minibatch loop's stats rows, lr, Adam moments and
-parameters to the bit over two iterations, with a symmetric and an
-asymmetric critic, and the metrics it hands out alias none of its
-buffers; the table holds the optimizer's float32 bias corrections for
-counts 1-40 beside their float32 reciprocals, and the directions from
-its rows are ``Optimizer.update``'s to the bit; a new lr tensor is
-copied in, while new moments, a new parameter storage or a new model
-capture again; the selection rule; a CPU update never captures and
-never opens ``ppo.graph``.
+buffer), run through ``Graphs`` (which runs it eagerly where there are
+no CUDA graphs) in place of the capture and of each replay, gives the
+old inline minibatch loop's stats rows, lr, Adam moments and parameters
+to the bit over two iterations, for a feed-forward and a recurrent
+policy with a symmetric and an asymmetric critic, and the metrics it
+hands out alias none of its buffers; the table holds the optimizer's
+float32 bias corrections for counts 1-40 beside their float32
+reciprocals, and the directions from its rows are ``Optimizer.update``'s
+to the bit; the selection rule (``applies``, and the env's rule on a
+step with no push or curriculum); ``Graphs.fits`` refuses a replaced
+held tensor, a new storage, another stride and another generator; the
+graphs keep no batch past its iteration; a new lr tensor is copied in, while new moments, a new parameter storage or a
+new model capture again; a CPU update never captures and never opens
+``ppo.graph``.
 
 On the card (marker ``cuda``, skipped without one): the directions from
 the table's rows are ``Optimizer.update``'s to the bit at legged_gym's
 widths (a card divides by a host float as a multiplication by its
-float32 reciprocal); three feed-forward iterations at legged_gym's
-widths (512-256-128, 235 obs; and 249 privileged obs for the critic) on
-128 envs of replayed transitions through a ``PPORunner``, the third
-after ``PPORunner.load`` of the checkpoint saved after the first, the
-graphed update against the same update forced eager: every minibatch's
-stats row and lr, the Adam moments, the parameters and the lr after
-each iteration equal to the bit, each iteration's metrics unchanged by
-the later iterations, the loaded iteration equal to the second, one
-capture for all three, and ``ppo.graph`` opened once per minibatch step
-that replayed. No JAX here: the card runs this file with
-``--noconftest``.
+float32 reciprocal); three iterations at legged_gym's widths
+(512-256-128, 235 obs; 249 privileged obs for the critic; LSTM 512 in
+front of each head for the recurrent case) on 128 envs of replayed
+transitions through a ``PPORunner``, the third after ``PPORunner.load``
+of the checkpoint saved after the first, the graphed update against the
+same update forced eager: every minibatch's stats row and lr, the Adam
+moments, the parameters and the lr after each iteration equal to the
+bit, each iteration's metrics unchanged by the later iterations, the
+loaded iteration equal to the second, one capture for all three,
+``ppo.graph`` opened once per minibatch step that replayed, and
+``ppo.bptt`` only where the recurrent step ran eagerly. No JAX here: the
+card runs this file with ``--noconftest``.
 
 The benchmark's reader of ``update_graph_share.train``
 (benchmark/metrics/update_graph_share.py) over hand-made span summaries:
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -45,10 +52,10 @@ import torch
 import legged_gym_tpu_torch
 from benchmark import spec
 from legged_gym_tpu_torch.config import AlgorithmCfg, PolicyCfg, TrainCfg
-from legged_gym_tpu_torch.envs.legged_env import Transition
-from legged_gym_tpu_torch.rl import ppo
+from legged_gym_tpu_torch.envs.legged_env import LeggedEnv, Transition
+from legged_gym_tpu_torch.rl import networks as nets, ppo
 from legged_gym_tpu_torch.rl.runner import PPORunner
-from legged_gym_tpu_torch.utils import profiling
+from legged_gym_tpu_torch.utils import cuda_graph, profiling
 
 STEPS = 24
 ACTIONS = 12
@@ -112,16 +119,39 @@ class _Replay:
 
 # ----------------------------------------------------------------- CPU
 
-def _inline_loop(ts, flat, idxs, alg, asym):
+def _policy(hidden, rnn=None):
+    """An MLP policy, or with ``rnn`` an LSTM of that width in front of
+    each head."""
+    return PolicyCfg(actor_hidden_dims=[hidden, hidden // 2],
+                     critic_hidden_dims=[hidden, hidden // 2],
+                     rnn_type=rnn and "lstm", rnn_hidden_size=rnn or 512)
+
+
+def _start(env, policy):
+    """The carried obs of the first iteration: the env's pack, with zero
+    carries for a recurrent policy."""
+    if nets.is_recurrent(policy):
+        return env.start(), nets.init_memory(env.num_envs, policy,
+                                             device=env.device)
+    return env.start()
+
+
+def _inline_loop(ts, batch, idxs, alg, asym):
     """The update's minibatch loop as it was written inline before the
-    step was factored for capture, on the batch ``flat`` and the rows
-    ``idxs`` of each step. Returns the stats rows."""
+    step was factored for capture, on the staged batch ``batch`` ({"flat",
+    "mem"}) and the rows ``idxs`` of each step. Returns the stats rows."""
     opt = ppo.make_optimizer(alg)
     params, lr, rows = ts.params, ts.lr, []
+    flat, mem = batch["flat"], batch["mem"]
     for idx in idxs:
-        mb = {k: v[idx] for k, v in flat.items()}
-        loss, (s_loss, v_loss, kl) = ppo.ppo_loss(ts.model, mb, alg, False,
-                                                  asym, idx.numel())
+        if mem is None:
+            mb, size = {k: v[idx] for k, v in flat.items()}, idx.numel()
+        else:
+            mb = {k: v[:, idx] for k, v in flat.items()}
+            mb["mem_a0"], mb["mem_c0"] = mem["a"][idx], mem["c"][idx]
+            size = idx.numel() * STEPS
+        loss, (s_loss, v_loss, kl) = ppo.ppo_loss(
+            ts.model, mb, alg, mem is not None, asym, size)
         grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
             lr = torch.where(kl > alg.desired_kl * 2.0,
@@ -137,15 +167,6 @@ def _inline_loop(ts, flat, idxs, alg, asym):
     return rows
 
 
-def _eager_capture(self, k, idx):
-    """``UpdateGraph.capture`` on the CPU: the step on the static buffers
-    run eagerly, now and as each replay."""
-    self._load(k, idx)
-    self.body()
-    self.graph = types.SimpleNamespace(replay=self.body)
-    return self.row.clone()
-
-
 def _state(ts):
     return ([p.detach().clone() for p in ts.params],
             [m.clone() for m in ts.opt_state.mu],
@@ -154,6 +175,8 @@ def _state(ts):
 
 
 def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
     if isinstance(a, torch.Tensor):
@@ -161,10 +184,20 @@ def _same(a, b):
     return a == b
 
 
-@pytest.mark.parametrize("priv", [None, 7], ids=["symmetric", "asymmetric"])
-def test_the_factored_step_is_the_inline_loop_to_the_bit(priv, monkeypatch):
+def _clone(x):
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return None if x is None else x.clone()
+
+
+@pytest.mark.parametrize("priv, rnn", [(None, None), (7, None), (None, 6),
+                                       (7, 6)],
+                         ids=["symmetric", "asymmetric",
+                              "recurrent-symmetric", "recurrent-asymmetric"])
+def test_the_factored_step_is_the_inline_loop_to_the_bit(priv, rnn,
+                                                         monkeypatch):
     obs, n = 9, 8
-    policy = PolicyCfg(actor_hidden_dims=[16, 8], critic_hidden_dims=[16, 8])
+    policy = _policy(16, rnn)
     alg = AlgorithmCfg(learning_rate=3e-3)
     env = _Replay(n, obs, priv, "cpu")
     ts = ppo.init_train_state(4, obs, ACTIONS, policy, alg,
@@ -172,32 +205,27 @@ def test_the_factored_step_is_the_inline_loop_to_the_bit(priv, monkeypatch):
     ref = ppo.init_train_state(4, obs, ACTIONS, policy, alg,
                                critic_obs_dim=priv, device="cpu")
     staged, loads, rows = [], [], []
-    real = {name: getattr(ppo.UpdateGraph, name)
-            for name in ("stage", "_load", "replay")}
+    real_stage, real_outputs = cuda_graph.Graphs.stage, cuda_graph.Graphs.outputs
 
-    def stage(self, flat, lr, count, steps):
-        staged.append({k: v.clone() for k, v in flat.items()})
-        return real["stage"](self, flat, lr, count, steps)
+    def stage(self, group=None, tree=None):
+        real_stage(self, group, tree)
+        if group == "batch":
+            staged.append(_clone({"flat": self._ns["flat"],
+                                  "mem": self._ns["mem"]}))
+        else:
+            loads.append(self._ns["idx"].clone())
 
-    def load(self, k, idx):
-        loads.append(idx.clone())
-        return real["_load"](self, k, idx)
+    def outputs(self):
+        out = real_outputs(self)
+        rows.append(out["row"])
+        return out
 
-    def capture(self, k, idx):
-        rows.append(_eager_capture(self, k, idx))
-        return rows[-1]
-
-    def replay(self, k, idx):
-        rows.append(real["replay"](self, k, idx))
-        return rows[-1]
-
-    monkeypatch.setattr(ppo, "graph_update", lambda *args: True)
-    for name, fn in (("stage", stage), ("_load", load),
-                     ("capture", capture), ("replay", replay)):
-        monkeypatch.setattr(ppo.UpdateGraph, name, fn)
+    monkeypatch.setattr(cuda_graph, "applies", lambda *args: True)
+    monkeypatch.setattr(cuda_graph.Graphs, "stage", stage)
+    monkeypatch.setattr(cuda_graph.Graphs, "outputs", outputs)
     learn = ppo.make_learn_fn(env, policy, alg, STEPS)
     steps = alg.num_learning_epochs * alg.num_mini_batches
-    start, handed, held = env.start(), [], []
+    start, handed, held = _start(env, policy), [], []
     for it in range(2):
         _, _, start, m = learn(ts, None, start)
         m = {k: v for k, v in m.items() if k != "episode"}
@@ -214,6 +242,10 @@ def test_the_factored_step_is_the_inline_loop_to_the_bit(priv, monkeypatch):
     # the first iteration's metrics alias no buffer the second overwrote
     assert not torch.equal(held[0]["lr"], held[1]["lr"])
     assert _same(list(handed[0].values()), list(held[0].values()))
+    # the recurrent windows start from the rollout's carries
+    assert (staged[1]["mem"] is None) == (rnn is None)
+    if rnn:
+        assert staged[1]["mem"]["a"].abs().sum() > 0
 
 
 def _directions_from_the_table(device, shapes):
@@ -259,22 +291,79 @@ def test_the_tables_corrections_are_the_host_floats_on_the_card():
 
 @pytest.mark.parametrize("device, mesh, recurrent, graphed", [
     ("cuda", None, False, True), ("cpu", None, False, False),
-    ("cuda", "split", False, False), ("cuda", None, True, False)])
+    ("cuda", "split", False, False), ("cuda", None, True, True)])
 def test_the_selection_rule(device, mesh, recurrent, graphed):
-    assert ppo.graph_update(torch.device(device), mesh, recurrent) is graphed
+    # the policy's kind is no clause: a recurrent update replays its
+    # whole step as a feed-forward one does
+    device = torch.device(device)
+    assert cuda_graph.applies(device, mesh) is graphed
+    # the env's rule on a step that neither pushes nor runs the curriculum
+    env = types.SimpleNamespace(device=device, mesh=mesh,
+                                _push_step=lambda step: False,
+                                _curriculum_step=lambda step: False)
+    assert LeggedEnv._graph_step(env, 1, torch.zeros(2, ACTIONS)) is graphed
+
+
+def _fits_case(graphs, x, gen, held, change):
+    if change == "held":
+        held = [held[0].clone()] + held[1:]
+    elif change == "storage":
+        held[0].data = held[0].data.clone()
+    elif change == "stride":
+        x = x.t().contiguous().t()
+    else:
+        gen = torch.Generator().manual_seed(0)
+    return graphs.fits({"a": {"x": x}}, gen, held)
+
+
+@pytest.mark.parametrize("change", ["held", "storage", "stride",
+                                    "generator"])
+def test_fits_refuses_what_the_graphs_cannot_run(change):
+    gen = torch.Generator().manual_seed(0)
+    x, held = torch.randn(4, 3), [torch.zeros(3), torch.zeros(2)]
+    graphs = cuda_graph.Graphs([lambda v: {"y": v["x"] + 1.0}],
+                               {"a": {"x": x}}, gen, held)
+    assert graphs.fits({"a": {"x": torch.randn(4, 3)}}, gen, list(held))
+    assert not _fits_case(graphs, x, gen, list(held), change)
+
+
+def test_the_graphs_keep_no_batch_past_the_iteration(monkeypatch):
+    batches = []
+    real_stage = cuda_graph.Graphs.stage
+
+    def stage(self, group=None, tree=None):
+        if group == "batch":
+            batches.append(weakref.ref(self._given["batch"][0]))
+        return real_stage(self, group, tree)
+
+    monkeypatch.setattr(cuda_graph, "applies", lambda *args: True)
+    monkeypatch.setattr(cuda_graph.Graphs, "stage", stage)
+    obs, n = 9, 8
+    policy = _policy(16)
+    alg = AlgorithmCfg(num_learning_epochs=1, num_mini_batches=2)
+    env = _Replay(n, obs, None, "cpu")
+    ts = ppo.init_train_state(0, obs, ACTIONS, policy, alg, device="cpu")
+    learn = ppo.make_learn_fn(env, policy, alg, STEPS)
+    start = env.start()
+    for _ in range(2):
+        _, _, start, _ = learn(ts, None, start)
+        # the staged batch's first tensor, the rollout's obs, is gone
+        assert len(batches) and batches[-1]() is None
 
 
 def test_new_state_tensors_capture_again(monkeypatch):
     captures = []
+    real_capture = cuda_graph.Graphs.capture
 
-    def capture(self, k, idx):
-        captures.append(k)
-        return _eager_capture(self, k, idx)
+    def capture(self, spans=None):
+        # the iteration's step at which the capture happens, and the graphs
+        captures.append(((ts.opt_state.count - 1) % 2, self))
+        return real_capture(self, spans)
 
-    monkeypatch.setattr(ppo, "graph_update", lambda *args: True)
-    monkeypatch.setattr(ppo.UpdateGraph, "capture", capture)
+    monkeypatch.setattr(cuda_graph, "applies", lambda *args: True)
+    monkeypatch.setattr(cuda_graph.Graphs, "capture", capture)
     obs, n = 9, 8
-    policy = PolicyCfg(actor_hidden_dims=[16, 8], critic_hidden_dims=[16, 8])
+    policy = _policy(16)
     alg = AlgorithmCfg(num_learning_epochs=1, num_mini_batches=2)
     env = _Replay(n, obs, None, "cpu")
     ts = ppo.init_train_state(0, obs, ACTIONS, policy, alg, device="cpu")
@@ -293,7 +382,8 @@ def test_new_state_tensors_capture_again(monkeypatch):
     for change in changes:
         change()
         _, _, start, _ = learn(ts, None, start)
-    assert len(captures) == 4 and set(captures) == {0}
+    assert len(captures) == 4 and {k for k, _ in captures} == {0}
+    assert len({id(g) for _, g in captures}) == 4
 
 
 def test_a_cpu_update_never_captures(monkeypatch):
@@ -302,9 +392,9 @@ def test_a_cpu_update_never_captures(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", capture)
     monkeypatch.setattr(torch.cuda, "graph", capture)
-    monkeypatch.setattr(ppo, "UpdateGraph", capture)
+    monkeypatch.setattr(cuda_graph, "Graphs", capture)
     obs, n = 9, 8
-    policy = PolicyCfg(actor_hidden_dims=[16, 8], critic_hidden_dims=[16, 8])
+    policy = _policy(16)
     alg = AlgorithmCfg()
     env = _Replay(n, obs, None, "cpu")
     ts = ppo.init_train_state(0, obs, ACTIONS, policy, alg, device="cpu")
@@ -318,30 +408,29 @@ def test_a_cpu_update_never_captures(monkeypatch):
 
 # ---------------------------------------------------------------- card
 
-def _three_iterations(graphed, priv, tmp_path, monkeypatch):
+def _three_iterations(graphed, priv, rnn, tmp_path, monkeypatch):
     """Three iterations on the card, the third after loading the
-    checkpoint saved after the first. Returns (per-step (row, lr), the
-    state and metrics after each iteration, the metrics as read at the
-    end, captures, ppo.graph spans, ppo.minibatch spans)."""
+    checkpoint saved after the first (and the obs carried after it).
+    Returns (per-step (row, lr), the state and metrics after each
+    iteration, the metrics as read at the end, captures, ppo.graph,
+    ppo.minibatch and ppo.bptt spans)."""
     steps = []
     captures = []
     if graphed:
-        real_capture, real_replay = (ppo.UpdateGraph.capture,
-                                     ppo.UpdateGraph.replay)
+        real_capture, real_outputs = (cuda_graph.Graphs.capture,
+                                      cuda_graph.Graphs.outputs)
 
-        def capture(self, k, idx):
-            captures.append(k)
-            row = real_capture(self, k, idx)
-            steps.append((row.clone(), self.lr_now.clone()))
-            return row
+        def capture(self, spans=None):
+            captures.append(len(steps) % 20)   # the iteration's step
+            return real_capture(self, spans)
 
-        def replay(self, k, idx):
-            row = real_replay(self, k, idx)
-            steps.append((row.clone(), self.lr_now.clone()))
-            return row
+        def outputs(self):
+            out = real_outputs(self)
+            steps.append((out["row"].clone(), out["lr"].clone()))
+            return out
 
-        monkeypatch.setattr(ppo.UpdateGraph, "capture", capture)
-        monkeypatch.setattr(ppo.UpdateGraph, "replay", replay)
+        monkeypatch.setattr(cuda_graph.Graphs, "capture", capture)
+        monkeypatch.setattr(cuda_graph.Graphs, "outputs", outputs)
     else:
         real_step = ppo.minibatch_step
 
@@ -350,10 +439,13 @@ def _three_iterations(graphed, priv, tmp_path, monkeypatch):
             steps.append((row.clone(), lr.clone()))
             return row, lr
 
-        monkeypatch.setattr(ppo, "graph_update", lambda *args: False)
+        monkeypatch.setattr(cuda_graph, "applies", lambda *args: False)
         monkeypatch.setattr(ppo, "minibatch_step", minibatch_step)
     env = _Replay(128, 235, priv, "cuda")
-    runner = PPORunner(env, TrainCfg(seed=5), log_dir=None)
+    cfg = TrainCfg(seed=5)
+    if rnn:
+        cfg.policy.rnn_type, cfg.policy.rnn_hidden_size = "lstm", rnn
+    runner = PPORunner(env, cfg, log_dir=None)
     runner._ensure_env_state()
     path = str(tmp_path / f"first_{graphed}.ckpt")
     after, read = [], []
@@ -361,6 +453,7 @@ def _three_iterations(graphed, priv, tmp_path, monkeypatch):
         for it in range(3):
             if it == 2:
                 runner.load(path)
+                runner.obs = kept
             ts, runner.env_state, runner.obs, m = runner.learn_fn(
                 runner.train_state, runner.env_state, runner.obs)
             torch.cuda.synchronize()
@@ -369,25 +462,28 @@ def _three_iterations(graphed, priv, tmp_path, monkeypatch):
             after.append((_state(ts), {k: v.clone() for k, v in m.items()}))
             if it == 0:
                 runner.save(path)
+                kept = runner.obs
     torch.cuda.synchronize()
     names = [s[0] for s in rec.spans]
     return (steps, after, read, captures, names.count("ppo.graph"),
-            names.count("ppo.minibatch"))
+            names.count("ppo.minibatch"), names.count("ppo.bptt"))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("priv", [None, 249], ids=["symmetric",
-                                                   "asymmetric"])
-def test_graphed_update_equals_the_eager_update_to_the_bit(priv, tmp_path,
+@pytest.mark.parametrize("priv, rnn", [(None, None), (249, None),
+                                       (249, 512)],
+                         ids=["symmetric", "asymmetric", "recurrent"])
+def test_graphed_update_equals_the_eager_update_to_the_bit(priv, rnn,
+                                                           tmp_path,
                                                            monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     legged_gym_tpu_torch.set_full_fp32()
-    g = _three_iterations(True, priv, tmp_path, monkeypatch)
+    g = _three_iterations(True, priv, rnn, tmp_path, monkeypatch)
     monkeypatch.undo()
-    e = _three_iterations(False, priv, tmp_path, monkeypatch)
-    g_steps, g_after, g_read, g_cap, g_graph, g_mb = g
-    e_steps, e_after, e_read, e_cap, e_graph, e_mb = e
+    e = _three_iterations(False, priv, rnn, tmp_path, monkeypatch)
+    g_steps, g_after, g_read, g_cap, g_graph, g_mb, g_bptt = g
+    e_steps, e_after, e_read, e_cap, e_graph, e_mb, e_bptt = e
     assert len(g_steps) == len(e_steps) == 60
     assert _same(g_steps, e_steps)
     for (g_state, g_m), (e_state, e_m) in zip(g_after, e_after):
@@ -402,6 +498,9 @@ def test_graphed_update_equals_the_eager_update_to_the_bit(priv, tmp_path,
     # one capture (the first step) serves the three iterations
     assert g_cap == [0] and e_cap == []
     assert (g_graph, g_mb, e_graph, e_mb) == (59, 60, 0, 60)
+    # the unroll's span opens on the eager runs only: the capture step's
+    # real call and its recording, or every eager step
+    assert (g_bptt, e_bptt) == ((2, 60) if rnn else (0, 0))
 
 
 # ---------------------------------------------------- benchmark reader
