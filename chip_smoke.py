@@ -39,7 +39,10 @@ Phases (any failure exits non-zero and prints no result):
      then the same for aliengo (K4), cassie (K2) and anymal_c_rough (K3,
      four launches per policy step with the actuator LSTM between) at 4096
      envs, 2 iterations each, the variant's launches counted and every
-     other variant's held at zero. Metrics finite, lr in [1e-5, 1e-2], actor and critic
+     other variant's held at zero; anymal_c_rough then steps 4 more times
+     under torch.profiler, its physics a replay of its CUDA graph, and
+     the trace must hold four chain_step_kernel launches a step, as many
+     as the counter adds. Metrics finite, lr in [1e-5, 1e-2], actor and critic
      changed, a save / load round trip restores weights, moments and
      iteration; prints policy-steps/s (24 x num_envs x iterations / wall,
      synced) and the rollout / update split of an iteration;
@@ -488,6 +491,42 @@ def train_path(tag, env, task, iterations, variant, smi, per_step=1,
           f"{rollout_s / iterations:.3f} s, update "
           f"{update_s / iterations:.3f} s) [{smi}]")
     return launches, runner
+
+
+def replayed_launches(tag, env, state, variant, per_step, smi,
+                      steps=4):
+    """``steps`` policy steps of ``env`` from ``state`` (random normal
+    actions) under torch.profiler, each a replay of its physics graph
+    (span ``physics.graph``): the trace must hold ``per_step``
+    ``chain_step_kernel`` launches a step, and ``chain_kernel.launches``
+    must add as many on ``variant``; the count of its physics graph's
+    recorded launches is thus read from the card, not assumed."""
+    from legged_gym_tpu_torch.physics import chain_kernel
+    from legged_gym_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+
+    def one_step():
+        nonlocal state
+        state, _ = env.step(state, torch.randn(
+            (env.num_envs, env.num_actions), generator=gen, device=DEVICE))
+
+    with torch.no_grad():
+        one_step()
+        counted = chain_kernel.launches[variant]
+        with profiling.recording() as rec:
+            _, _, _, _, kernels = device_profile(one_step, steps)
+    counted = chain_kernel.launches[variant] - counted
+    traced = sum(c for name, (c, _) in kernels.items()
+                 if "chain_step_kernel" in name)
+    replays = rec.summary().get("physics.graph", {"n": 0})["n"]
+    if not traced == counted == per_step * steps or replays != steps:
+        fail(f"{tag}: {steps} replayed steps ({replays} replays) traced "
+             f"{traced} chain_step_kernel launches, counted {counted}, "
+             f"{per_step * steps} expected")
+    print(f"phase 4 {tag}: {steps} policy steps replayed the physics "
+          f"graph, {traced} chain_step_kernel launches in the trace, "
+          f"{counted} {variant} counted [{smi}]")
 
 
 def device_profile(fn, reps):
@@ -2144,9 +2183,13 @@ def main():
                              ALIENGO_TRAIN_ITERS, "K4", smi)
     k2_train, _ = train_path("cassie 4096", cas_env, "cassie",
                              CASSIE_TRAIN_ITERS, "K2", smi)
-    k3_train, _ = train_path("anymal_c_rough 4096", any_env,
-                             "anymal_c_rough", ANYMAL_TRAIN_ITERS, "K3", smi,
-                             per_step=any_env.cfg.control.decimation)
+    k3_train, any_runner = train_path(
+        "anymal_c_rough 4096", any_env, "anymal_c_rough",
+        ANYMAL_TRAIN_ITERS, "K3", smi,
+        per_step=any_env.cfg.control.decimation)
+    replayed_launches("anymal_c_rough 4096", any_env, any_runner.env_state,
+                      "K3", any_env.cfg.control.decimation, smi)
+    del any_runner
     del ali_env, cas_env, any_env
 
     # ---- phase 5: the general stacked engine ----

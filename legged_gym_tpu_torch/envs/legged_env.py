@@ -7,7 +7,9 @@ them:
   the card, its plain version on the CPU) for position drive
   (``control_type="P"``, the Go1 UniNet output being discarded by the
   reference, config.ControlCfg) and for the SEA torque drive (ANYmal's
-  actuator LSTM evaluated once per sim dt between kernel launches);
+  actuator LSTM evaluated once per sim dt between kernel launches; on a
+  card with the env axis whole, the whole drive replayed as one CUDA
+  graph, ``_sea_physics_replayed``);
 - the general stacked engine (physics/engine.py, plain torch ops) when
   self-collision pairs remain after the rest filter (anymal_c_flat), body
   damping is set, ``sim.use_chain_engine`` is off, an applied UniNet is
@@ -57,6 +59,7 @@ from legged_gym_tpu_torch import assets
 from legged_gym_tpu_torch.model.robot import compile_model
 from legged_gym_tpu_torch.ops import quat as quat_ops
 from legged_gym_tpu_torch.parallel.sharding import all_sum, shard_env_state
+from legged_gym_tpu_torch.physics import chain_kernel
 from legged_gym_tpu_torch.physics.chain_engine import ChainEngine
 from legged_gym_tpu_torch.physics.contact import (ANCHOR_SENTINEL,
                                                   ContactConfig)
@@ -350,8 +353,11 @@ class LeggedEnv:
             math.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self._device_constants()
         # the post-physics tail's CUDA graphs, captured by the first step
-        # that may replay them (_tail)
+        # that may replay them (_tail), and the SEA drive's physics graph
+        # (_sea_physics_replayed)
         self._graphs = None
+        self._physics_graphs = None
+        self._physics_launches = {}    # kernel launches its capture recorded
 
     def _device_constants(self):
         """Per-step constants, uploaded once."""
@@ -754,7 +760,8 @@ class LeggedEnv:
                     self._general_physics(state, a, patch, anchors)
             else:
                 physics, torques, contact_f, actuator_state, contact_ws = \
-                    self._chain_physics(state, a, contact_patch, anchors)
+                    self._chain_physics(state, a, contact_patch, anchors,
+                                        self._physics_graph(actions))
 
         x = {name: getattr(state, name) for name in _TAIL_STATE}
         x.update(physics=physics, torques=torques, contact_f=contact_f,
@@ -776,15 +783,30 @@ class LeggedEnv:
                     and "tracking_lin_vel" in self.reward_scales
                     and common_step % self.max_episode_length == 0)
 
-    def _graph_step(self, common_step, actions):
-        """Whether this step's tail may replay the CUDA graphs: where
-        graphs apply (``cuda_graph.applies``), on a step that neither
-        pushes nor runs the command curriculum (host branches the graphs
-        leave out), with no gradient asked of the actions."""
+    def _graphs_apply(self, actions):
+        """Whether this step may replay CUDA graphs at all: where graphs
+        apply (``cuda_graph.applies``), with no gradient asked of the
+        actions."""
         return (cuda_graph.applies(self.device, self.mesh)
-                and not self._push_step(common_step)
-                and not self._curriculum_step(common_step)
                 and not (actions.requires_grad and torch.is_grad_enabled()))
+
+    def _graph_step(self, common_step, actions):
+        """Whether this step's tail may replay the CUDA graphs
+        (``_graphs_apply``), on a step that neither pushes nor runs the
+        command curriculum (host branches the graphs leave out)."""
+        return (self._graphs_apply(actions)
+                and not self._push_step(common_step)
+                and not self._curriculum_step(common_step))
+
+    def _physics_graph(self, actions):
+        """Whether this step's physics may replay its CUDA graph
+        (``_graphs_apply``), on the chain engine with an actuator net
+        between its launches (the SEA torque drive: the net's ~40 small
+        ops and one launch per sim dt, where the position drive is one
+        launch a step). Pushes and the command curriculum are branches of
+        the tail, so they do not bar it."""
+        return (self.chain_engine is not None and self._sea is not None
+                and self._graphs_apply(actions))
 
     def _tail(self, x, common_step, actions):
         """Everything after the physics: rewards, the masked reset and the
@@ -794,27 +816,15 @@ class LeggedEnv:
         which the first such step captures, and any such step whose inputs
         no longer fit the captured ones. Returns (new state,
         transition)."""
-        graph = self._graph_step(common_step, actions)
-        graphs, inputs = self._graphs, {"x": x}
-        if graph and graphs is not None and graphs.fits(inputs,
-                                                        self.generator):
-            with profiling.span("env.graph"):
-                with profiling.span("env.rewards"):
-                    graphs.stage()
-                    graphs.replay(0)
-                with profiling.span("env.reset"):
-                    graphs.replay(1)
-                with profiling.span("env.obs"):
-                    graphs.replay(2)
-                    return self._outputs(graphs.outputs(), common_step)
         sections = [functools.partial(f, common_step) for f in (
             self._tail_rewards, self._tail_reset, self._tail_obs)]
-        if graph:
-            graphs = cuda_graph.Graphs(sections, inputs, self.generator)
-            graphs.stage()
-            graphs.capture(spans=("env.rewards", "env.reset", "env.obs"))
-            self._graphs = graphs
-            return self._outputs(graphs.outputs(), common_step)
+        if self._graph_step(common_step, actions):
+            self._graphs = cuda_graph.reuse(self._graphs, lambda: sections,
+                                            {"x": x}, self.generator)
+            _, out = self._graphs.run(
+                spans=("env.rewards", "env.reset", "env.obs"),
+                span="env.graph")
+            return self._outputs(out, common_step)
         with profiling.span("env.rewards"):
             v = {**x, **sections[0](x)}
         with profiling.span("env.reset"):
@@ -1133,28 +1143,60 @@ class LeggedEnv:
 
         return sea_tau
 
-    def _chain_physics(self, state, a, contact_patch, anchors):
-        """The policy step's physics on the fused chain step. Returns
-        (physics, torques, body forces, actuator state, anchors)."""
+    def _chain_physics(self, state, a, contact_patch, anchors, graph):
+        """The policy step's physics on the fused chain step (the SEA
+        drive's as a replay of its CUDA graph where ``graph``: the rule
+        ``_physics_graph``). Returns (physics, torques, body forces,
+        actuator state, anchors)."""
         if self._sea is not None:
-            # SEA torque drive: one kernel launch per sim dt with the LSTM
-            # evaluated between them
-            out = self.chain_engine.step_decimation_torque_fn(
-                state.physics, state.link_params, state.friction,
-                self._sea_tau_fn(a, state.n), state.actuator_state,
-                contact_patch=contact_patch, anchors=anchors)
-            physics, torques, contact_f, actuator_state = out[:4]
-        else:
-            targets = torch.clamp(
-                a * self.cfg.control.action_scale + self._dflt,
-                self._soft_lo, self._soft_hi)
-            out = self.chain_engine.step_decimation_pos(
-                state.physics, state.link_params, state.friction, targets,
-                contact_patch=contact_patch, anchors=anchors)
-            physics, torques, contact_f = out[:3]
-            actuator_state = state.actuator_state
-        return (physics, torques, contact_f, actuator_state,
+            x = {"physics": state.physics, "link_params": state.link_params,
+                 "friction": state.friction, "a": a,
+                 "actuator_state": state.actuator_state,
+                 "contact_patch": contact_patch, "anchors": anchors}
+            o = (self._sea_physics_replayed(x) if graph
+                 else self._sea_physics(x))
+            return (o["physics"], o["torques"], o["contact_f"],
+                    o["actuator_state"], o["anchors"])
+        targets = torch.clamp(a * self.cfg.control.action_scale + self._dflt,
+                              self._soft_lo, self._soft_hi)
+        out = self.chain_engine.step_decimation_pos(
+            state.physics, state.link_params, state.friction, targets,
+            contact_patch=contact_patch, anchors=anchors)
+        return (out[0], out[1], out[2], state.actuator_state,
                 out[-1] if anchors is not None else None)
+
+    def _sea_physics(self, x):
+        """The SEA torque drive on the chain engine: one kernel launch per
+        sim dt with the LSTM evaluated between them, as a section of
+        tensors (``x``: the state's physics, link parameters and friction,
+        the clipped actions ``a``, the SEA carry, the contact window and
+        the anchors or None)."""
+        a = x["a"]
+        out = self.chain_engine.step_decimation_torque_fn(
+            x["physics"], x["link_params"], x["friction"],
+            self._sea_tau_fn(a, a.shape[-1]), x["actuator_state"],
+            contact_patch=x["contact_patch"], anchors=x["anchors"])
+        return {"physics": out[0], "torques": out[1], "contact_f": out[2],
+                "actuator_state": out[3],
+                "anchors": out[4] if x["anchors"] is not None else None}
+
+    def _sea_physics_replayed(self, x):
+        """``_sea_physics`` as a replay of its CUDA graph
+        (``utils.cuda_graph``), captured by the first call and again by any
+        whose inputs no longer fit the captured ones; the inputs staged
+        once a step, the outputs fresh tensors. A replay opens the span
+        ``physics.graph`` and counts the kernel launches that its capture
+        recorded (``chain_kernel.recorded``)."""
+        graphs = self._physics_graphs = cuda_graph.reuse(
+            self._physics_graphs, lambda: [self._sea_physics], {"x": x})
+        before = dict(chain_kernel.recorded)
+        replayed, out = graphs.run(span="physics.graph")
+        if replayed:
+            chain_kernel.count_replay(self._physics_launches)
+        else:
+            self._physics_launches = {
+                v: n - before[v] for v, n in chain_kernel.recorded.items()}
+        return out
 
     def _general_physics(self, state, a, patch, ws):
         """The policy step's physics on the general stacked engine:

@@ -504,9 +504,21 @@ def _one_device(tensors):
     return devices.pop()
 
 
-# kernel launches per variant ("K1", "K4", "K2", "K3": chain_step.variant);
-# run_decimation adds one where it launches the kernel, and nowhere else
+# kernel launches that ran, per variant ("K1", "K4", "K2", "K3":
+# chain_step.variant): run_decimation adds one where it launches the kernel;
+# where a CUDA graph captures the stream the launch only records, and
+# run_decimation adds it to ``recorded`` instead: whoever replays such a
+# graph adds what its capture recorded to ``launches`` (count_replay)
 launches = {"K1": 0, "K4": 0, "K2": 0, "K3": 0}
+recorded = {"K1": 0, "K4": 0, "K2": 0, "K3": 0}
+
+
+def count_replay(tally):
+    """Count the launches of one replay of a graph whose capture recorded
+    ``tally`` ({variant: launches}, the growth of ``recorded`` over the
+    capture)."""
+    for variant, n in tally.items():
+        launches[variant] += n
 
 
 def run_decimation(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat,
@@ -529,8 +541,10 @@ def run_decimation(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat,
     ``cv`` its cached constants); tensors on one CUDA device launch the
     kernel on the current stream (``consts``: the cached const_table() on
     that device), and each launch adds one to
-    ``launches[chain_step.variant(cc, anchored)]``. The call, checks aside,
-    is the span ``kernel.chain_step`` (utils/profiling.py).
+    ``launches[chain_step.variant(cc, anchored)]``, or to ``recorded``
+    where a CUDA graph captures the stream: that launch only records, and
+    each replay of the graph counts it (``count_replay``). The call, checks
+    aside, is the span ``kernel.chain_step`` (utils/profiling.py).
     """
     if anchors is not None and not cc.warm_start:
         raise ValueError("anchors given but cc.warm_start is off")
@@ -547,7 +561,9 @@ def run_decimation(cc, lp_base, lp_lvl, mu, targets, ph, r0, c0, pos, quat,
             lib = launch_library(model_layout(cc.cm), pos.shape[-1],
                                  anchors is not None)
             out = launch(lib, cc, args, consts, anchors)
-        launches[chain_step.variant(cc, anchored=anchors is not None)] += 1
+            tally = (recorded if torch.cuda.is_current_stream_capturing()
+                     else launches)
+            tally[chain_step.variant(cc, anchored=anchors is not None)] += 1
         return out
 
 

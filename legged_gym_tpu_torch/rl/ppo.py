@@ -540,19 +540,19 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
             inputs = {"batch": {"flat": flat, "mem": mem_start, "lr": lr},
                       "step": {"idx": mb_idx[0], "bc": table[0]}}
             held = ts.params + ts.opt_state.mu + ts.opt_state.nu
-            graph = step_graph.get("graph")
-            if graph is None or not graph.fits(inputs, held=held):
-                def section(v):
-                    row, lr = minibatch_step(
-                        ts, minibatch(v["flat"], v["idx"], v["mem"]),
-                        v["lr"], (v["bc"][0], v["bc"][1]), alg_cfg,
-                        recurrent, asym, size)
-                    if lr is not v["lr"]:
-                        v["lr"].copy_(lr)          # the next step's lr
-                    return {"row": row, "lr": lr}
 
-                graph = step_graph["graph"] = cuda_graph.Graphs(
-                    [section], inputs, held=held)
+            def section(v):
+                row, lr = minibatch_step(
+                    ts, minibatch(v["flat"], v["idx"], v["mem"]),
+                    v["lr"], (v["bc"][0], v["bc"][1]), alg_cfg,
+                    recurrent, asym, size)
+                if lr is not v["lr"]:
+                    v["lr"].copy_(lr)              # the next step's lr
+                return {"row": row, "lr": lr}
+
+            graph = step_graph["graph"] = cuda_graph.reuse(
+                step_graph.get("graph"), lambda: [section], inputs,
+                held=held)
             graph.stage("batch")
         stats = []
         for step in range(steps):
@@ -566,12 +566,7 @@ def make_learn_fn(env, policy_cfg, alg_cfg, num_steps):
                         recurrent, asym, size, summed=summed)
                 else:
                     graph.stage("step", {"idx": idx, "bc": table[step]})
-                    if graph.graphs is None:
-                        graph.capture()
-                    else:
-                        with profiling.span("ppo.graph"):
-                            graph.replay(0)
-                    out = graph.outputs()
+                    _, out = graph.run(span="ppo.graph", stage=False)
                     row, lr = out["row"], out["lr"]
             stats.append(row)
         ts.lr = lr

@@ -1,6 +1,7 @@
 """CUDA graphs: when the port may use them (``applies``) and the one way it
 captures and replays them (``Graphs``): the env step's post-physics tail
-(envs/legged_env.py) and the PPO update's minibatch step (rl/ppo.py).
+and its SEA torque-drive physics (envs/legged_env.py), and the PPO
+update's minibatch step (rl/ppo.py).
 
 ``Graphs`` captures a chain of sections, functions of a namespace dict
 (the inputs and the earlier sections' results: tensors, dicts, tuples,
@@ -10,13 +11,15 @@ result.
 
 - Inputs come in named groups of names; a caller stages each group when
   it changes (``stage``), so the update copies its batch once per
-  iteration and its row indices once per step. ``fits`` says when the
+  iteration and its row indices once per step. A broadcast input (a
+  stride 0) is staged into a dense buffer. ``fits`` says when the
   inputs, the generator or the tensors the sections change in place
   (``held``) are no longer those captured, and a new capture is due.
 - Capture: the real call runs the sections eagerly on the staged buffers
   on the capture stream (kernels loaded, workspaces made), then the
   capture records them without running them, so no call is applied
-  twice or skipped. Where there are no CUDA graphs (the CPU) ``capture``
+  twice or skipped. The cyclic garbage collector is off while
+  they record. Where there are no CUDA graphs (the CPU) ``capture``
   and each ``replay`` run the sections eagerly: the CPU tests drive the
   protocol so.
 - Random numbers: every graph registers the caller's ``torch.Generator``,
@@ -24,6 +27,10 @@ result.
   moment, and leaves it where they leave it.
 - Outputs are fresh tensors (``outputs``): nothing handed out aliases a
   buffer that a later replay or staging overwrites.
+- A caller keeps its graphs from call to call: ``reuse`` gives them back
+  where they fit the new inputs and builds new ones where they do not,
+  and ``Graphs.run`` stages, captures the first time or replays after,
+  and hands out the outputs.
 
 A replay is only as valid as the host decisions the sections took while
 capturing: the caller replays only where its host-side branches (the
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 
@@ -45,6 +53,22 @@ def applies(device, mesh):
     axis whole (split over ranks, a step holds collectives: the update's
     gradient all-reduce, the env's finished-episode statistics)."""
     return device.type == "cuda" and mesh is None
+
+
+def _span(name):
+    """The span ``name`` (utils/profiling.py), or none where None."""
+    return profiling.span(name) if name else contextlib.nullcontext()
+
+
+def reuse(graphs, sections, inputs, generator=None, held=()):
+    """The graphs to run on ``inputs``, ``generator`` and ``held``:
+    ``graphs`` where they fit them (``Graphs.fits``: the inputs become
+    their current ones), else new ``Graphs`` over them of the sections
+    ``sections()`` gives (called only then), which their first ``run``
+    captures."""
+    if graphs is not None and graphs.fits(inputs, generator, held):
+        return graphs
+    return Graphs(sections(), inputs, generator, held)
 
 
 def _flatten(x, leaves):
@@ -92,6 +116,16 @@ def _layout(leaves, spec):
     return spec, tuple((t.shape, t.stride(), t.dtype) for t in leaves)
 
 
+def _buffer(t):
+    """A static buffer for inputs laid out as ``t``: of its strides, or
+    dense where ``t`` is broadcast (a stride 0 repeats its elements, which
+    a copy cannot write)."""
+    if any(st == 0 and n > 1 for n, st in zip(t.shape, t.stride())):
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device)
+
+
 def _by_dtype(tensors):
     """[(indices, tensors)] of ``tensors`` grouped by dtype."""
     groups = {}
@@ -121,8 +155,7 @@ class Graphs:
             leaves, spec = flatten(tree)
             self._layouts[group] = _layout(leaves, spec)
             self._given[group] = leaves
-            bufs = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                        device=t.device) for t in leaves]
+            bufs = [_buffer(t) for t in leaves]
             self._buffers[group] = _by_dtype(bufs)
             ns.update(unflatten(spec, bufs))
         self._ns = ns
@@ -213,8 +246,7 @@ class Graphs:
         are the real call's."""
         def run_all():
             for k in range(len(self.sections)):
-                with (profiling.span(spans[k]) if spans
-                      else contextlib.nullcontext()):
+                with _span(spans and spans[k]):
                     self._run(k)
 
         if self.device.type != "cuda":
@@ -231,20 +263,51 @@ class Graphs:
             gen = self.generator
             drawn = gen.get_state() if gen is not None else None
             v, pool, graphs = self._ns, None, []
-            for section in self.sections:
-                graph = torch.cuda.CUDAGraph()
-                if gen is not None:
-                    graph.register_generator_state(gen)
-                with torch.cuda.graph(graph, pool=pool, stream=stream):
-                    out = section(v)
-                v = {**v, **out}
-                pool = graph.pool()
-                graphs.append(graph)
+            # no cyclic garbage collection while recording: a collection
+            # that destroys a dead cycle's graphs (a dead env's sections
+            # refer to the env) inside a capture invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                for section in self.sections:
+                    graph = torch.cuda.CUDAGraph()
+                    if gen is not None:
+                        graph.register_generator_state(gen)
+                    with torch.cuda.graph(graph, pool=pool, stream=stream):
+                        out = section(v)
+                    v = {**v, **out}
+                    pool = graph.pool()
+                    graphs.append(graph)
+            finally:
+                if collecting:
+                    gc.enable()
             if gen is not None:
                 gen.set_state(drawn)
         leaves, _ = flatten(out)
         self._recorded = _by_dtype([leaves[j] for j in self._made])
         self.graphs = graphs
+
+    def run(self, spans=None, span=None, stage=True):
+        """The sections on the current inputs, staged first (all groups;
+        none where ``stage`` is False, the caller having staged them):
+        captured where nothing is captured yet (``capture``), else
+        replayed, ``span`` open around the replay and ``spans[k]`` around
+        section k's (the staging in the first, the outputs in the last).
+        Returns (whether this call replayed, the fresh outputs)."""
+        if self.graphs is None:
+            if stage:
+                self.stage()
+            self.capture(spans)
+            return False, self.outputs()
+        last = len(self.sections) - 1
+        with _span(span):
+            for k in range(last + 1):
+                with _span(spans and spans[k]):
+                    if k == 0 and stage:
+                        self.stage()
+                    self.replay(k)
+                    if k == last:
+                        return True, self.outputs()
 
     def replay(self, k):
         """Replay section ``k``'s graph (run it eagerly where there are no

@@ -22,7 +22,8 @@ new model capture again; a CPU update never captures and never opens
 On the card (marker ``cuda``, skipped without one): the directions from
 the table's rows are ``Optimizer.update``'s to the bit at legged_gym's
 widths (a card divides by a host float as a multiplication by its
-float32 reciprocal); three iterations at legged_gym's widths
+float32 reciprocal); a dead reference cycle holding captured graphs is
+not collected inside another capture (which it would invalidate); three iterations at legged_gym's widths
 (512-256-128, 235 obs; 249 privileged obs for the critic; LSTM 512 in
 front of each head for the recurrent case) on 128 envs of replayed
 transitions through a ``PPORunner``, the third after ``PPORunner.load``
@@ -42,6 +43,8 @@ nothing without summaries or where the span never opened."""
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import types
 import weakref
 
@@ -301,6 +304,7 @@ def test_the_selection_rule(device, mesh, recurrent, graphed):
     env = types.SimpleNamespace(device=device, mesh=mesh,
                                 _push_step=lambda step: False,
                                 _curriculum_step=lambda step: False)
+    env._graphs_apply = functools.partial(LeggedEnv._graphs_apply, env)
     assert LeggedEnv._graph_step(env, 1, torch.zeros(2, ACTIONS)) is graphed
 
 
@@ -325,6 +329,70 @@ def test_fits_refuses_what_the_graphs_cannot_run(change):
                                {"a": {"x": x}}, gen, held)
     assert graphs.fits({"a": {"x": torch.randn(4, 3)}}, gen, list(held))
     assert not _fits_case(graphs, x, gen, list(held), change)
+
+
+def test_reuse_keeps_what_fits_and_run_captures_then_replays():
+    x = torch.randn(4, 3)
+    made = []
+
+    def sections():
+        made.append(None)
+        return [lambda v: {"y": v["x"] + 1.0}, lambda v: {"z": 2.0 * v["y"]}]
+
+    graphs = cuda_graph.reuse(None, sections, {"a": {"x": x}})
+    with profiling.recording() as rec:
+        for step in range(3):
+            x = torch.randn(4, 3)
+            again = cuda_graph.reuse(graphs, sections, {"a": {"x": x}})
+            assert again is graphs
+            replayed, out = graphs.run(spans=("one", "two"), span="all")
+            assert replayed is (step > 0)
+            assert torch.equal(out["z"], 2.0 * (x + 1.0))
+    spans = rec.summary()
+    assert (spans["all"]["n"], spans["one"]["n"], spans["two"]["n"]) == (
+        2, 3, 3)
+    # a new layout builds new graphs, which capture again
+    other = cuda_graph.reuse(graphs, sections, {"a": {"x": x.t()}})
+    assert other is not graphs and len(made) == 2
+    assert other.run()[0] is False
+    # staged by the caller
+    other.stage("a", {"x": (x + 1.0).t()})
+    replayed, out = other.run(stage=False)
+    assert replayed and torch.equal(out["z"], 2.0 * ((x + 1.0).t() + 1.0))
+
+
+@pytest.mark.cuda
+def test_no_graph_is_collected_inside_a_capture():
+    """A dead reference cycle that holds captured graphs (as a dead env's
+    sections hold the env) is not collected while other graphs record."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x = torch.arange(8.0, device="cuda")
+    old = cuda_graph.Graphs([lambda v: {"y": 2.0 * v["x"]}],
+                            {"a": {"x": x}})
+    old.stage()
+    old.capture()
+    spare, calls = [old], []
+    del old
+
+    def section(v):
+        calls.append(None)
+        if len(calls) == 2:                    # the recording
+            cycle = types.SimpleNamespace(graphs=spare.pop())
+            cycle.me = cycle
+            del cycle
+            # enough new containers for several young-generation passes
+            junk = [[] for _ in range(4 * gc.get_threshold()[0])]
+            del junk
+        return {"y": v["x"] + 1.0}
+
+    graphs = cuda_graph.Graphs([section], {"a": {"x": x}})
+    graphs.stage()
+    graphs.capture()
+    graphs.stage("a", {"x": x + 5.0})
+    graphs.replay(0)
+    assert torch.equal(graphs.outputs()["y"], x + 6.0)
+    assert len(calls) == 2 and not spare
 
 
 def test_the_graphs_keep_no_batch_past_the_iteration(monkeypatch):
